@@ -1,0 +1,151 @@
+"""Per-frame render: planar YUV in -> planar YUV out, on an explicit device.
+
+Counterpart of lut_renderer_tpu/ops/render.py. ``render_yuv_frame`` keeps
+the JAX package's layout dispatch: "fused" runs kernel B (ops.fused420);
+"plain" runs the pixel ops of ops.pixel around kernel A (ops.lut3d); and
+"rowphase", which exists in the JAX package only to dodge XLA/Mosaic
+layout costs and is bit-identical to plain by contract, is an alias of
+plain. "auto" takes fused where it applies.
+
+PyTorch runs eagerly, so ``make_render_fn`` compiles nothing: it caches a
+prepared callable per (config, LUT size and domain, device) that holds the
+per-config constants, and uploads the LUT once.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from lut_renderer_tpu.ops.prepare import PreparedLut
+
+from ..device import DeviceLike, resolve_device
+from .fused420 import bayer_tensor, fused420_applicable, render_fused420
+from .lut3d import apply_lut_planes
+from .pixel import render_planes
+from .prepare import LutTable
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Static pixel-pipeline configuration for one render stage: the JAX
+    package's RenderConfig field for field, defaults included.
+
+    ``lut_strategy`` and ``lut_precision`` stay accepted for parity with
+    the JAX API; every value runs the one exact f32 LUT (kernel A or B on
+    the card, the plain version on the CPU)."""
+
+    in_depth: int = 8
+    out_depth: int = 8
+    in_subsampling: str = "420"   # "420" | "422" | "444"
+    out_subsampling: str = "420"
+    in_full_range: bool = False
+    # range the pipeline normalises to before the LUT
+    work_full_range: bool = False
+    out_full_range: bool = False
+    matrix_in: str = "bt709"
+    matrix_out: str = "bt709"
+    interp: str = "tetrahedral"
+    dither: str = "none"          # "none" | "ordered" | "random" |
+    #                               "error_diffusion_host"
+    chroma_up: str = "nearest"    # "nearest" | "bilinear"
+    apply_lut: bool = True
+    lut_strategy: str = "mxu"
+    lut_precision: str = "auto"
+    # requantise after range normalisation, as the reference's 8-bit
+    # intermediate `format=yuv420p` step does
+    requantize_intermediate: bool = True
+    # output (w, h) of the policy's `-s WxH`; not ported yet (raises)
+    resize: Optional[Tuple[int, int]] = None
+    # "auto" | "fused" | "plain" | "rowphase" (alias of plain)
+    phase_layout: str = "auto"
+
+
+_PHASE_LAYOUTS = ("auto", "plain", "rowphase", "fused")
+
+
+def _use_fused(y, u, cfg: RenderConfig, lut) -> bool:
+    """Layout choice; a forced "fused" that cannot apply raises."""
+    if cfg.phase_layout not in _PHASE_LAYOUTS:
+        raise ValueError(f"unknown phase_layout {cfg.phase_layout!r}")
+    if cfg.phase_layout not in ("auto", "fused"):
+        return False
+    ok = fused420_applicable(y, u, cfg, lut)
+    if not ok and cfg.phase_layout == "fused":
+        raise ValueError(
+            "phase_layout='fused' was forced but the fused YUV->YUV kernel "
+            "does not apply to this config (it needs a LUT, nearest chroma "
+            "siting, no resize, a non-error-diffusion dither, even "
+            "dimensions, and matching chroma plane geometry); "
+            f"cfg={cfg}, y={tuple(y.shape)}, u={tuple(u.shape)}")
+    return ok
+
+
+def render_yuv_frame(y, u, v, lut: Optional[LutTable], cfg: RenderConfig,
+                     bayer=None):
+    """One (batched) frame through the pipeline. Inputs are integer
+    code-value planes (uint8/uint16) at cfg.in_depth with
+    cfg.in_subsampling chroma, on the device the work runs on."""
+    if cfg.resize is not None:
+        raise NotImplementedError(
+            "resize is not ported yet (ops/resample.py); the port never "
+            "skips it silently")
+    if _use_fused(y, u, cfg, lut):
+        return render_fused420(y, u, v, lut, cfg, bayer=bayer)
+    lut_fn = None
+    if cfg.apply_lut and lut is not None:
+        def lut_fn(r, g, b):
+            return apply_lut_planes(r, g, b, lut, cfg.interp)
+    return render_planes(y, u, v, cfg, lut_fn)
+
+
+def lut_operands_for(lut, cfg: RenderConfig,
+                     device: DeviceLike) -> Optional[LutTable]:
+    """The LUT on `device` as the kernels read it, or None when no LUT
+    applies. Takes a LutTable, the JAX package's PreparedLut, or a parsed
+    Lut3D; the upload happens here, once per render function."""
+    if lut is None or not cfg.apply_lut:
+        return None
+    if isinstance(lut, LutTable):
+        return lut.to(device)
+    if isinstance(lut, PreparedLut):
+        return LutTable.from_prepared(lut, device)
+    return LutTable.from_lut3d(lut, device)
+
+
+class _Renderer:
+    """The prepared callable for one (cfg, LUT size/domain, device): the
+    device's Bayer tensor and the config, with the LUT table passed per
+    call so that LUTs of one size share it."""
+
+    def __init__(self, cfg: RenderConfig, device: torch.device):
+        self.cfg = cfg
+        self.bayer = bayer_tensor(device) if cfg.dither == "ordered" else None
+
+    def __call__(self, y, u, v, lut):
+        return render_yuv_frame(y, u, v, lut, self.cfg, bayer=self.bayer)
+
+
+_RENDER_FN_CACHE: dict = {}
+_RENDER_FN_CACHE_MAX = 32
+# concurrent TaskRunners reach this cache; the FIFO eviction is not atomic
+_RENDER_FN_CACHE_LOCK = threading.Lock()
+
+
+def make_render_fn(lut, cfg: RenderConfig, device: DeviceLike = "cuda"):
+    """A render function ``fn(y, u, v) -> (yq, uq, vq)`` for tensors on
+    `device`. Batched (B, H, W) inputs take the same path as single frames."""
+    dev = resolve_device(device)
+    table = lut_operands_for(lut, cfg, dev)
+    key = (cfg, None if table is None else table.static_key, dev)
+    with _RENDER_FN_CACHE_LOCK:
+        renderer = _RENDER_FN_CACHE.get(key)
+        if renderer is None:
+            renderer = _Renderer(cfg, dev)
+            while len(_RENDER_FN_CACHE) >= _RENDER_FN_CACHE_MAX:
+                _RENDER_FN_CACHE.pop(next(iter(_RENDER_FN_CACHE)))
+            _RENDER_FN_CACHE[key] = renderer
+    return lambda y, u, v: renderer(y, u, v, table)
