@@ -1,3 +1,4 @@
-"""app: the port's user-facing entry points (the CLI). Persistence,
-naming, presets and defaults are the JAX package's lut_renderer_tpu.app,
-which imports no jax."""
+"""app: the port's user-facing entry points (the CLI) and its copies of
+the JAX package's backend-free app helpers: settings, LUT history, naming,
+presets, smart defaults, the ProRes estimate, task creation and the queue
+monitor."""

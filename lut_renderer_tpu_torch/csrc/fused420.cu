@@ -5,6 +5,13 @@
 // pallas_call over _make_kernel). Per luma pixel, as there: integer -> f32,
 // range normalisation with the reference's 8-bit intermediate requantise,
 // YUV -> RGB, the 3D LUT (lut_interp.cuh), RGB -> YUV, dither and quantise.
+//
+// The LUT step is a template on the table kind, as the JAX kernel's
+// _acc_from_rgb branches on the tier: lutk::LutArgs (the exact f32 table,
+// entry point fused420_launch) or lutk::Coarse2Args (the coarse + residual
+// decomposition of a big LUT at a coarse2* tier, kernel C's device
+// function, entry point fused420_coarse2_launch). Both instantiations come
+// from this one source.
 // Unlike the TPU kernel, which hands four f32 chroma phase planes to XLA for
 // the downsample, one thread here owns one OUTPUT chroma site: a 2x2 luma
 // quad for 4:2:0 out, a 1x2 pair for 4:2:2, one pixel for 4:4:4. It box-
@@ -12,7 +19,8 @@
 // (pixel.chroma_downsample_420/422) and writes the final planes, so nothing
 // but the integer planes touches device memory.
 //
-// Bound on Hopper: the table gathers (4-8 16-byte L2 loads per luma pixel),
+// Bound on Hopper: the table gathers (4-8 16-byte L2 loads per luma pixel
+// for the exact table; 8 coarse + 4-8 char4 residual loads for coarse2),
 // then the f32 arithmetic (IEEE divisions of colorcore.matrices included);
 // device-memory traffic is only 3 B/px for 8-bit 4:2:0 in and out. Matrix
 // and range constants arrive as f32, computed in double on the host exactly
@@ -36,8 +44,11 @@ struct Fused420Params {
   void* yo;  // (B, H, W) uint8 or uint16
   void* uo;  // (B, H >> out_sy, W >> out_sx)
   void* vo;
-  const float4* table;  // (n, n, n, 4) f32
+  const float4* table;  // (n, n, n, 4) f32, exact table
   const float* bayer;   // (16, 16) f32 offsets, for ordered dither
+  const float4* coarse;  // (m, m, m, 4) f32, coarse2 table
+  const char4* resid;    // (n, n, n, 4) int8, coarse2 residual
+  const float4* rscale;  // (n, 4) f32, residual scale of (r, channel)
   int batch;
   int height;
   int width;
@@ -48,7 +59,9 @@ struct Fused420Params {
   int out_sx;
   int out_sy;
   int n;
+  int m;  // coarse2 grid, (n + 1) / 2
   int interp;
+  int resid_interp;  // coarse2 residual interp (trilinear for _tri)
   int normalize;  // in_full_range != work_full_range
   int requant;    // requantise after the normalisation
   int dither;
@@ -126,9 +139,8 @@ __device__ __forceinline__ float quantize(const Fused420Params& p, float x,
   return fminf(fmaxf(floorf(x + 0.5f), 0.0f), p.maxv_out);
 }
 
-template <int OSY, int OSX>
-__global__ void fused420_kernel(Fused420Params p) {
-  lutk::LutArgs L;
+__device__ __forceinline__ void table_args(const Fused420Params& p,
+                                           lutk::LutArgs& L) {
   L.table = p.table;
   L.n = p.n;
 #pragma unroll
@@ -136,6 +148,27 @@ __global__ void fused420_kernel(Fused420Params p) {
     L.dmin[i] = p.dmin[i];
     L.dmax[i] = p.dmax[i];
   }
+}
+
+__device__ __forceinline__ void table_args(const Fused420Params& p,
+                                           lutk::Coarse2Args& C) {
+  C.coarse = p.coarse;
+  C.resid = p.resid;
+  C.rscale = p.rscale;
+  C.n = p.n;
+  C.m = p.m;
+  C.resid_interp = p.resid_interp;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    C.dmin[i] = p.dmin[i];
+    C.dmax[i] = p.dmax[i];
+  }
+}
+
+template <int OSY, int OSX, class TableArgs>
+__global__ void fused420_kernel(Fused420Params p) {
+  TableArgs L;
+  table_args(p, L);
   const int H = p.height, W = p.width;
   const int hc_in = H >> p.in_sy, wc_in = W >> p.in_sx;
   const int hc_out = H >> OSY, wc_out = W >> OSX;
@@ -215,10 +248,8 @@ __global__ void fused420_kernel(Fused420Params p) {
   }
 }
 
-}  // namespace
-
-extern "C" __attribute__((visibility("default"))) int fused420_launch(
-    const Fused420Params* p, void* stream) {
+template <class TableArgs>
+int launch(const Fused420Params* p, void* stream) {
   const long long sites = (long long)p->batch * (p->height >> p->out_sy) *
                           (p->width >> p->out_sx);
   if (sites <= 0) return 0;
@@ -227,13 +258,25 @@ extern "C" __attribute__((visibility("default"))) int fused420_launch(
   if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond this
   cudaStream_t st = (cudaStream_t)stream;
   if (p->out_sy && p->out_sx) {
-    fused420_kernel<1, 1><<<(unsigned)blocks, block, 0, st>>>(*p);
+    fused420_kernel<1, 1, TableArgs><<<(unsigned)blocks, block, 0, st>>>(*p);
   } else if (p->out_sx) {
-    fused420_kernel<0, 1><<<(unsigned)blocks, block, 0, st>>>(*p);
+    fused420_kernel<0, 1, TableArgs><<<(unsigned)blocks, block, 0, st>>>(*p);
   } else if (!p->out_sy) {
-    fused420_kernel<0, 0><<<(unsigned)blocks, block, 0, st>>>(*p);
+    fused420_kernel<0, 0, TableArgs><<<(unsigned)blocks, block, 0, st>>>(*p);
   } else {
     return (int)cudaErrorInvalidValue;  // 4:4:0 output is not a geometry
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" __attribute__((visibility("default"))) int fused420_launch(
+    const Fused420Params* p, void* stream) {
+  return launch<lutk::LutArgs>(p, stream);
+}
+
+extern "C" __attribute__((visibility("default"))) int fused420_coarse2_launch(
+    const Fused420Params* p, void* stream) {
+  return launch<lutk::Coarse2Args>(p, stream);
 }

@@ -11,10 +11,10 @@ from __future__ import annotations
 from fractions import Fraction
 from typing import Optional, Tuple
 
-from lut_renderer_tpu.hostio.encode import EncoderSettings
-from lut_renderer_tpu.models import VideoInfo
-from lut_renderer_tpu.models.video_info import infer_bit_depth, parse_fraction
-from lut_renderer_tpu.plan.policy import RenderSpec
+from ..hostio.encode import EncoderSettings
+from ..models import VideoInfo
+from ..models.video_info import infer_bit_depth, parse_fraction
+from ..plan.policy import RenderSpec
 
 from ..ops.render import RenderConfig
 
@@ -38,7 +38,7 @@ def parse_pix_fmt(pix_fmt: Optional[str]) -> Tuple[int, str]:
 def _matrix_from_tags(name: Optional[str]) -> Optional[str]:
     if not name:
         return None
-    from lut_renderer_tpu.colorcore.matrices import MATRIX_COEFFS
+    from ..colorcore.matrices import MATRIX_COEFFS
 
     n = str(name).lower()
     return n if n in MATRIX_COEFFS else None
@@ -65,7 +65,7 @@ def derive_render_config(spec: RenderSpec, info: Optional[VideoInfo]) -> RenderC
             dither = str(step.args.get("mode", "ordered"))
             if dither == "error_diffusion":
                 try:
-                    from lut_renderer_tpu.native_ext import native_available
+                    from ..native_ext import native_available
 
                     dither = (
                         "error_diffusion_host"
@@ -149,7 +149,7 @@ def effective_output_pix_fmt(spec: RenderSpec, info: Optional[VideoInfo]) -> str
     in_depth = info.bit_depth if info and info.bit_depth else 8
     _, in_sub = parse_pix_fmt(info.pix_fmt if info else None)
     try:
-        from lut_renderer_tpu.hostio.encode import pick_encoder_pix_fmt
+        from ..hostio.encode import pick_encoder_pix_fmt
 
         picked = pick_encoder_pix_fmt(spec.video_codec, in_depth, in_sub)
     except Exception:

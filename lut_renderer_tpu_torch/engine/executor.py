@@ -14,7 +14,8 @@ runs on its own stream after an event that marks the end of the render.
 Not carried over from the JAX executor: geometry bucketing (CUDA kernels
 take runtime shapes, so there is no per-shape compile to avoid), the
 gather fallback on a non-TPU platform and the device mesh (the device is
-explicit), and the per-LUT tier log (there is one exact tier).
+explicit), and the per-LUT precision gate (the tier log names the tier
+``ops.render.lut_tier`` runs: exact, or the requested coarse2 tier).
 """
 
 from __future__ import annotations
@@ -30,13 +31,13 @@ from typing import Callable, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from lut_renderer_tpu.hostio.decode import VideoDecoder
-from lut_renderer_tpu.hostio.encode import VideoEncoder
-from lut_renderer_tpu.models import VideoInfo
-from lut_renderer_tpu.plan.policy import RenderSpec
+from ..hostio.decode import VideoDecoder
+from ..hostio.encode import VideoEncoder
+from ..models import VideoInfo
+from ..plan.policy import RenderSpec
 
 from ..device import DeviceLike, resolve_device
-from ..ops.render import make_render_fn
+from ..ops.render import lut_tier, make_render_fn
 from .config import (
     derive_encoder_settings,
     derive_render_config,
@@ -158,8 +159,8 @@ def run_stage(
     lut_strategy: str = "mxu",
     profile_dir: Optional[str] = None,
 ) -> StageResult:
-    """Render one stage file to file. `lut` is a LutTable, the JAX
-    package's PreparedLut, a parsed Lut3D, or None. An unusable `device`
+    """Render one stage file to file. `lut` is a LutTable, a Coarse2Table,
+    the JAX package's PreparedLut, a parsed Lut3D, or None. An unusable `device`
     raises; media and render failures return a failed StageResult.
     `lut_strategy` is accepted for parity with the JAX executor; both
     values run the same kernels."""
@@ -212,7 +213,8 @@ def run_stage(
             f"matrix {cfg.matrix_in}->{cfg.matrix_out}, device={dev}"
         )
         if lut is not None and cfg.apply_lut:
-            log("engine: LUT kernel precision=exact")
+            log(f"engine: LUT kernel precision="
+                f"{lut_tier(cfg.lut_precision, lut.size)}")
 
         audio_from = (
             Path(spec.source)
@@ -282,7 +284,7 @@ def run_stage(
 
         host_ed = cfg.dither == "error_diffusion_host"
         if host_ed:
-            from lut_renderer_tpu.native_ext import error_diffusion_quantize
+            from ..native_ext import error_diffusion_quantize
 
             def _finish(plane):
                 out = error_diffusion_quantize(plane, cfg.out_depth)

@@ -6,8 +6,7 @@ output frames tick at k/fps; each tick emits the most recent input frame
 whose timestamp has been reached (duplicating when input is slow, dropping
 when input is fast). In passthrough mode frames stream through unchanged.
 
-The port's copy of lut_renderer_tpu/engine/scheduler.py, which cannot be
-imported without running the JAX package's engine/__init__ (and jax).
+The port's copy of lut_renderer_tpu/engine/scheduler.py.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from __future__ import annotations
 from fractions import Fraction
 from typing import Iterator, Optional
 
-from lut_renderer_tpu.hostio.decode import DecodedFrame
+from ..hostio.decode import DecodedFrame
 
 
 class FrameScheduler:

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of csrc/.
 
 The sources compile with nvcc into one shared library with a plain C
-interface, loaded through ctypes. The build happens at first use, on the
-machine that has the card, into ``lut_renderer_tpu_torch/build/`` under a
-name keyed by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads at once. Nothing here runs at import time.
+interface, loaded through ctypes: one nvcc per source, all started at once,
+then one link. The build happens at first use, on the machine that has the
+card, into ``lut_renderer_tpu_torch/build/`` under a name keyed by a hash
+of the sources and flags, so an edited source rebuilds and an unchanged one
+loads at once. Nothing here runs at import time.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``. The last keeps
 every multiply and add separately rounded, as the NumPy/PyTorch versions
@@ -30,11 +31,13 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("lut3d.cu", "fused420.cu")
+SOURCES = ("lut3d.cu", "coarse2.cu", "fused420.cu")
 HEADERS = ("lut_interp.cuh",)
+ENTRY_POINTS = ("lut3d_launch", "coarse2_launch", "fused420_launch",
+                "fused420_coarse2_launch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _LOCK = threading.Lock()
@@ -65,18 +68,35 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds) -> None:
+    """Run the commands at once; raise with the output of the first that
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def _compile(target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{target.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    nvcc = nvcc_path()
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+              for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]])
+        os.replace(tmp, target)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:
@@ -91,7 +111,8 @@ def load_library() -> ctypes.CDLL:
         if not target.exists():
             _compile(target)
         lib = ctypes.CDLL(str(target))
-        for fn in (lib.lut3d_launch, lib.fused420_launch):
+        for name in ENTRY_POINTS:
+            fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         build_seconds = time.perf_counter() - t0

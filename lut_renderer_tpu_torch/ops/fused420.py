@@ -3,16 +3,20 @@
 Counterpart of lut_renderer_tpu/ops/fused420.py. On CUDA tensors
 ``render_fused420`` launches kernel B (csrc/fused420.cu), which replaces
 the JAX package's fused pallas_call: integer planes in, quantised integer
-planes out, the chroma downsample done in the kernel. On CPU tensors it
-runs ``render_fused420_reference``: the plain layout of ops.pixel with the
-plain LUT, which is the value contract the JAX fused kernel is held to.
+planes out, the chroma downsample done in the kernel. Kernel B has two
+instantiations from one source, by the table it is given: the exact
+``LutTable`` and the coarse + residual ``Coarse2Table`` (kernel C's LUT
+step), each with its own launch count. On CPU tensors it runs
+``render_fused420_reference``: the plain layout of ops.pixel with the
+table's plain LUT, which is the value contract the JAX fused kernel is
+held to.
 
 It covers every nearest-sited {420, 422, 444} -> {420, 422, 444} geometry
 at 8 or 10 bits, full or limited range with the intermediate requantise,
 ``none``/``ordered``/``random`` dither and all five interpolations. The JAX
 package's two TPU-only gates are gone: the VMEM fit of the table and the
-N > 97 Mosaic compile limit. Widths need no lane padding: the kernel
-indexes exact shapes.
+N > 97 Mosaic compile limit, so a 129^3 LUT renders fused too. Widths
+need no lane padding: the kernel indexes exact shapes.
 """
 
 from __future__ import annotations
@@ -20,22 +24,25 @@ from __future__ import annotations
 import ctypes
 import functools
 import types
+from typing import Union
 
 import numpy as np
 import torch
 
-from lut_renderer_tpu.colorcore import matrices as cm
-from lut_renderer_tpu.colorcore.dither import bayer_offsets
+from ..colorcore import matrices as cm
+from ..colorcore.dither import bayer_offsets
 
 from . import _build
-from .lut3d import INTERP_CODES, apply_lut_planes_reference, \
-    canonical_interp, check_table
+from .lut3d import INTERP_CODES, apply_lut_planes_coarse2_reference, \
+    apply_lut_planes_reference, canonical_interp, check_table, \
+    resid_interp_for
 from .pixel import render_planes
-from .prepare import LutTable
+from .prepare import Coarse2Table, LutTable
 
-# kernel launches by render_fused420 on CUDA tensors (reset by callers that
-# check which path ran)
+# kernel launches by render_fused420 on CUDA tensors, of the exact and the
+# coarse2 instantiation (reset by callers that check which path ran)
 launches = 0
+coarse2_launches = 0
 
 _SUB_SHIFTS = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}  # (x, y)
 _DITHER_CODES = {"none": 0, "ordered": 1, "random": 2}
@@ -66,11 +73,14 @@ def fused420_applicable(y, u, cfg, lut) -> bool:
     return int(u.shape[-2]) == H >> sy and int(u.shape[-1]) == W >> sx
 
 
-def render_fused420_reference(y, u, v, lut: LutTable, cfg):
-    """Plain PyTorch version of kernel B, on any device."""
-    return render_planes(
-        y, u, v, cfg,
-        lambda r, g, b: apply_lut_planes_reference(r, g, b, lut, cfg.interp))
+def render_fused420_reference(y, u, v, lut: Union[LutTable, Coarse2Table],
+                              cfg):
+    """Plain PyTorch version of kernel B, on any device, with the plain
+    version of the table's own LUT kernel."""
+    plain = (apply_lut_planes_coarse2_reference
+             if isinstance(lut, Coarse2Table) else apply_lut_planes_reference)
+    return render_planes(y, u, v, cfg,
+                         lambda r, g, b: plain(r, g, b, lut, cfg.interp))
 
 
 class _Fused420Params(ctypes.Structure):
@@ -78,11 +88,12 @@ class _Fused420Params(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in
-         ("y", "u", "v", "yo", "uo", "vo", "table", "bayer")]
+         ("y", "u", "v", "yo", "uo", "vo", "table", "bayer", "coarse",
+          "resid", "rscale")]
         + [(name, ctypes.c_int) for name in
            ("batch", "height", "width", "in16", "out16", "in_sx", "in_sy",
-            "out_sx", "out_sy", "n", "interp", "normalize", "requant",
-            "dither")]
+            "out_sx", "out_sy", "n", "m", "interp", "resid_interp",
+            "normalize", "requant", "dither")]
         + [("dmin", ctypes.c_float * 3), ("dmax", ctypes.c_float * 3)]
         + [(name, ctypes.c_float) for name in
            ("norm_ysub", "norm_ymul", "norm_yadd", "norm_cmid", "norm_cmul",
@@ -138,8 +149,8 @@ def bayer_tensor(device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(bayer_offsets(4))).to(device)
 
 
-def _fused420_cuda(y, u, v, lut: LutTable, cfg, bayer):
-    global launches
+def _fused420_cuda(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
+    global launches, coarse2_launches
     dev = y.device
     check_table(lut, dev)
     if y.dtype not in (torch.uint8, torch.uint16):
@@ -167,19 +178,33 @@ def _fused420_cuda(y, u, v, lut: LutTable, cfg, bayer):
         bayer_ptr = bayer.data_ptr()
     else:
         bayer_ptr = None
+    coarse2 = isinstance(lut, Coarse2Table)
+    if coarse2:
+        tables = dict(coarse=lut.coarse.data_ptr(),
+                      resid=lut.resid.data_ptr(),
+                      rscale=lut.resid_scale.data_ptr(), m=lut.coarse_size,
+                      resid_interp=INTERP_CODES[
+                          resid_interp_for(lut, cfg.interp)])
+    else:
+        tables = dict(table=lut.table.data_ptr())
     p = _Fused420Params(
         y=y.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), yo=yo.data_ptr(),
-        uo=uo.data_ptr(), vo=vo.data_ptr(), table=lut.table.data_ptr(),
-        bayer=bayer_ptr, batch=B, height=H, width=W,
-        in16=int(y.dtype == torch.uint16), out16=int(out_dt == torch.uint16),
-        n=lut.size, dmin=(ctypes.c_float * 3)(*lut.domain_min),
-        dmax=(ctypes.c_float * 3)(*lut.domain_max), **k)
-    _build.launch("fused420_launch", p, dev)
-    launches += 1
+        uo=uo.data_ptr(), vo=vo.data_ptr(), bayer=bayer_ptr, batch=B,
+        height=H, width=W, in16=int(y.dtype == torch.uint16),
+        out16=int(out_dt == torch.uint16), n=lut.size,
+        dmin=(ctypes.c_float * 3)(*lut.domain_min),
+        dmax=(ctypes.c_float * 3)(*lut.domain_max), **tables, **k)
+    if coarse2:
+        _build.launch("fused420_coarse2_launch", p, dev)
+        coarse2_launches += 1
+    else:
+        _build.launch("fused420_launch", p, dev)
+        launches += 1
     return yo, uo, vo
 
 
-def render_fused420(y, u, v, lut: LutTable, cfg, bayer=None):
+def render_fused420(y, u, v, lut: Union[LutTable, Coarse2Table], cfg,
+                    bayer=None):
     """One render of a (batched) frame in a geometry fused420_applicable
     accepts. CUDA tensors launch kernel B (``bayer``: the device's Bayer
     tensor, made here when None); CPU tensors run the plain version."""

@@ -1,32 +1,39 @@
-"""3D-LUT application to planar float RGB: kernel A and its plain version.
+"""3D-LUT application to planar float RGB: kernels A and C and their plain
+versions.
 
-Counterpart of lut_renderer_tpu/ops/lut3d.py::apply_lut_planes. On a CUDA
-tensor the wrapper launches kernel A (csrc/lut3d.cu), which replaces the
-JAX package's ``_run_fused`` (its int8 and bf16 pallas_call launches): one
-thread per pixel reads the cell's corners straight from the (N, N, N, 4)
-f32 table. On a CPU tensor it runs ``apply_lut_planes_reference``, the
-plain PyTorch re-expression of colorcore.interp (which cannot take
-``xp=torch``: it calls ``.astype``).
+Counterpart of lut_renderer_tpu/ops/lut3d.py::apply_lut_planes, which
+dispatches here by the kind of table:
 
-Every precision tier of the JAX package computes an approximation of this
-one function; the kernel computes it exactly in f32, so no tier applies.
+* ``LutTable``: on a CUDA tensor kernel A (csrc/lut3d.cu), which replaces
+  the JAX package's ``_run_fused`` (its int8 and bf16 pallas_call
+  launches): one thread per pixel reads the cell's corners straight from
+  the (N, N, N, 4) f32 table, exact in f32. Every non-coarse tier of the
+  JAX package approximates this one function. On a CPU tensor
+  ``apply_lut_planes_reference``, the plain PyTorch re-expression of
+  colorcore.interp (which cannot take ``xp=torch``: it calls ``.astype``).
+* ``Coarse2Table``: on a CUDA tensor kernel C (csrc/coarse2.cu), which
+  replaces ``_run_coarse2_fused``: the coarse + residual decomposition of a
+  big LUT at a ``coarse2*`` tier. On a CPU tensor
+  ``apply_lut_planes_coarse2_reference``, which states the same function
+  on the fine grid.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
-from lut_renderer_tpu.colorcore.interp import INTERP_MODES
+from ..colorcore.interp import INTERP_MODES
 
 from . import _build
-from .prepare import LutTable
+from .prepare import Coarse2Table, LutTable, upsample2_linear
 
-# kernel launches by apply_lut_planes on CUDA tensors (reset by callers
-# that check which path ran)
+# kernel launches by apply_lut_planes on CUDA tensors, kernel A and kernel
+# C (reset by callers that check which path ran)
 launches = 0
+coarse2_launches = 0
 
 INTERP_CODES = {name: i for i, name in enumerate(INTERP_MODES)}
 
@@ -169,8 +176,30 @@ def apply_lut_planes_reference(r, g, b, lut: LutTable,
     return out[..., 0], out[..., 1], out[..., 2]
 
 
+def resid_interp_for(lut: Coarse2Table, interp: str) -> str:
+    """The residual term's interpolation: trilinear under a ``_tri`` tier
+    (JAX lut3d.py:794-796), else the render's own."""
+    return "trilinear" if lut.resid_trilinear else canonical_interp(interp)
+
+
+def apply_lut_planes_coarse2_reference(r, g, b, lut: Coarse2Table,
+                                       interp: str = "tetrahedral"):
+    """Plain PyTorch version of kernel C, on any device: the interp of the
+    upsampled coarse table U(C) plus the interp of the dequantised residual
+    (trilinear under a ``_tri`` tier), both on the fine N grid. Kernel C
+    evaluates the coarse term on the coarse grid instead."""
+    rgb = torch.stack([r, g, b], dim=-1).to(torch.float32)
+    lut = lut.to(rgb.device)
+    fine = LutTable(upsample2_linear(lut.coarse), lut.domain_min,
+                    lut.domain_max)
+    resid = LutTable(lut.resid_table(), lut.domain_min, lut.domain_max)
+    out = (_FUNCS[canonical_interp(interp)](rgb, fine)
+           + _FUNCS[resid_interp_for(lut, interp)](rgb, resid))
+    return out[..., 0], out[..., 1], out[..., 2]
+
+
 # ---------------------------------------------------------------------------
-# kernel A
+# kernels A and C
 # ---------------------------------------------------------------------------
 
 class _Lut3dParams(ctypes.Structure):
@@ -186,25 +215,77 @@ class _Lut3dParams(ctypes.Structure):
     ]
 
 
-def check_table(lut: LutTable, device: torch.device) -> None:
-    t = lut.table
-    n = lut.size
-    if (t.device != device or t.dtype != torch.float32
-            or t.shape != (n, n, n, 4) or not t.is_contiguous()):
+class _Coarse2Params(ctypes.Structure):
+    """Mirror of Coarse2Params in csrc/coarse2.cu."""
+
+    _fields_ = [
+        ("r", ctypes.c_void_p), ("g", ctypes.c_void_p),
+        ("b", ctypes.c_void_p), ("ro", ctypes.c_void_p),
+        ("go", ctypes.c_void_p), ("bo", ctypes.c_void_p),
+        ("coarse", ctypes.c_void_p), ("resid", ctypes.c_void_p),
+        ("rscale", ctypes.c_void_p), ("npix", ctypes.c_longlong),
+        ("n", ctypes.c_int), ("m", ctypes.c_int), ("interp", ctypes.c_int),
+        ("resid_interp", ctypes.c_int),
+        ("dmin", ctypes.c_float * 3), ("dmax", ctypes.c_float * 3),
+    ]
+
+
+def _check(t: torch.Tensor, dtype, shape, device, what: str) -> None:
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous()):
         raise ValueError(
-            f"LUT table must be a contiguous float32 (N, N, N, 4) tensor on "
-            f"{device}; got {tuple(t.shape)} {t.dtype} on {t.device}")
+            f"{what} must be a contiguous {dtype} {shape} tensor on {device}; "
+            f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def check_table(lut, device: torch.device) -> None:
+    """Raise unless every tensor of `lut` (a LutTable or a Coarse2Table) has
+    the layout its kernel reads, on `device`."""
+    n = lut.size
+    if isinstance(lut, Coarse2Table):
+        m = lut.coarse_size
+        if 2 * m - 1 != n:
+            raise ValueError(f"coarse table {m}^3 does not match N={n}")
+        _check(lut.coarse, torch.float32, (m, m, m, 4), device, "coarse table")
+        _check(lut.resid, torch.int8, (n, n, n, 4), device, "residual table")
+        _check(lut.resid_scale, torch.float32, (n, 4), device,
+               "residual scales")
+        return
+    _check(lut.table, torch.float32, (n, n, n, 4), device, "LUT table")
+
+
+def _check_planes(r, g, b, what: str) -> None:
+    for t in (r, g, b):
+        if (t.device != r.device or t.dtype != torch.float32
+                or t.shape != r.shape or not t.is_contiguous()):
+            raise ValueError(f"{what} takes three contiguous float32 planes "
+                             f"of one shape on one device")
+
+
+def _coarse2_cuda(r, g, b, lut: Coarse2Table, interp: str):
+    global coarse2_launches
+    dev = r.device
+    check_table(lut, dev)
+    _check_planes(r, g, b, "kernel C")
+    ro, go, bo = (torch.empty_like(r) for _ in range(3))
+    p = _Coarse2Params(
+        r.data_ptr(), g.data_ptr(), b.data_ptr(),
+        ro.data_ptr(), go.data_ptr(), bo.data_ptr(),
+        lut.coarse.data_ptr(), lut.resid.data_ptr(),
+        lut.resid_scale.data_ptr(), r.numel(), lut.size, lut.coarse_size,
+        INTERP_CODES[interp], INTERP_CODES[resid_interp_for(lut, interp)],
+        (ctypes.c_float * 3)(*lut.domain_min),
+        (ctypes.c_float * 3)(*lut.domain_max))
+    _build.launch("coarse2_launch", p, dev)
+    coarse2_launches += 1
+    return ro, go, bo
 
 
 def _lut3d_cuda(r, g, b, lut: LutTable, interp: str):
     global launches
     dev = r.device
     check_table(lut, dev)
-    for t in (r, g, b):
-        if (t.device != dev or t.dtype != torch.float32
-                or t.shape != r.shape or not t.is_contiguous()):
-            raise ValueError("kernel A takes three contiguous float32 planes "
-                             "of one shape on one device")
+    _check_planes(r, g, b, "kernel A")
     ro, go, bo = (torch.empty_like(r) for _ in range(3))
     p = _Lut3dParams(
         r.data_ptr(), g.data_ptr(), b.data_ptr(),
@@ -217,16 +298,23 @@ def _lut3d_cuda(r, g, b, lut: LutTable, interp: str):
     return ro, go, bo
 
 
-def apply_lut_planes(r, g, b, lut: LutTable, interp: str = "tetrahedral"
+def apply_lut_planes(r, g, b, lut: Union[LutTable, Coarse2Table],
+                     interp: str = "tetrahedral"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Apply a LutTable to same-shaped float planes in [0, 1].
+    """Apply a LutTable or a Coarse2Table to same-shaped float planes in
+    [0, 1].
 
-    CUDA tensors launch kernel A (raising if it cannot build or launch);
-    CPU tensors run the plain version."""
+    CUDA tensors launch kernel A or kernel C by the table's kind (raising
+    if it cannot build or launch); CPU tensors run the plain version."""
     interp = canonical_interp(interp)
+    coarse2 = isinstance(lut, Coarse2Table)
     if r.device.type == "cuda":
-        return _lut3d_cuda(r.contiguous(), g.contiguous(), b.contiguous(),
-                           lut, interp)
+        planes = (r.contiguous(), g.contiguous(), b.contiguous())
+        if coarse2:
+            return _coarse2_cuda(*planes, lut, interp)
+        return _lut3d_cuda(*planes, lut, interp)
     if r.device.type != "cpu":
         raise ValueError(f"unsupported device {r.device}")
+    if coarse2:
+        return apply_lut_planes_coarse2_reference(r, g, b, lut, interp)
     return apply_lut_planes_reference(r, g, b, lut, interp)

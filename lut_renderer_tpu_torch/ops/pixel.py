@@ -16,8 +16,8 @@ from typing import Callable, Tuple
 
 import torch
 
-from lut_renderer_tpu.colorcore import matrices as cm
-from lut_renderer_tpu.colorcore.dither import bayer_offsets
+from ..colorcore import matrices as cm
+from ..colorcore.dither import bayer_offsets
 
 _U32 = 0xFFFFFFFF
 

@@ -7,26 +7,36 @@ the JAX package's layout dispatch: "fused" runs kernel B (ops.fused420);
 layout costs and is bit-identical to plain by contract, is an alias of
 plain. "auto" takes fused where it applies.
 
+The LUT tier: ``lut_precision`` names one of the JAX package's numeric
+tiers. A ``coarse2*`` tier (coarse2, coarse2f, coarse2x and their ``_tri``
+forms) on a LUT with the decomposition (odd N >= 49) renders from a
+Coarse2Table through kernel C or kernel B's coarse2 instantiation, as the
+JAX package runs ``_run_coarse2_fused`` for it. Every other name, ``auto``
+included, and a coarse2 tier on a LUT without the decomposition, render
+from the exact table (kernels A and B): the JAX package's own fall-through
+(its lut3d.py:932) for the latter, and its non-coarse tiers all
+approximate the exact function.
+
 PyTorch runs eagerly, so ``make_render_fn`` compiles nothing: it caches a
-prepared callable per (config, LUT size and domain, device) that holds the
-per-config constants, and uploads the LUT once.
+prepared callable per (config, LUT size, domain and tier, device) that
+holds the per-config constants, and uploads the LUT once.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
-
-from lut_renderer_tpu.ops.prepare import PreparedLut
 
 from ..device import DeviceLike, resolve_device
 from .fused420 import bayer_tensor, fused420_applicable, render_fused420
 from .lut3d import apply_lut_planes
 from .pixel import render_planes
-from .prepare import LutTable
+from .prepare import COARSE2_TIERS, Coarse2Table, LutTable, has_coarse2
+
+Table = Union[LutTable, Coarse2Table]
 
 
 @dataclass(frozen=True)
@@ -34,9 +44,9 @@ class RenderConfig:
     """Static pixel-pipeline configuration for one render stage: the JAX
     package's RenderConfig field for field, defaults included.
 
-    ``lut_strategy`` and ``lut_precision`` stay accepted for parity with
-    the JAX API; every value runs the one exact f32 LUT (kernel A or B on
-    the card, the plain version on the CPU)."""
+    ``lut_strategy`` stays accepted for parity with the JAX API; both
+    values run the same kernels. ``lut_precision`` picks the table
+    (``lut_tier``)."""
 
     in_depth: int = 8
     out_depth: int = 8
@@ -84,7 +94,14 @@ def _use_fused(y, u, cfg: RenderConfig, lut) -> bool:
     return ok
 
 
-def render_yuv_frame(y, u, v, lut: Optional[LutTable], cfg: RenderConfig,
+def lut_tier(precision: str, size: int) -> str:
+    """The tier that runs for `precision` on an N^3 LUT: a coarse2 tier
+    where the LUT has the decomposition, else "exact"."""
+    return precision if precision in COARSE2_TIERS and has_coarse2(size) \
+        else "exact"
+
+
+def render_yuv_frame(y, u, v, lut: Optional[Table], cfg: RenderConfig,
                      bayer=None):
     """One (batched) frame through the pipeline. Inputs are integer
     code-value planes (uint8/uint16) at cfg.in_depth with
@@ -103,22 +120,32 @@ def render_yuv_frame(y, u, v, lut: Optional[LutTable], cfg: RenderConfig,
 
 
 def lut_operands_for(lut, cfg: RenderConfig,
-                     device: DeviceLike) -> Optional[LutTable]:
+                     device: DeviceLike) -> Optional[Table]:
     """The LUT on `device` as the kernels read it, or None when no LUT
-    applies. Takes a LutTable, the JAX package's PreparedLut, or a parsed
-    Lut3D; the upload happens here, once per render function."""
+    applies: a Coarse2Table when cfg.lut_precision names a coarse2 tier
+    and the LUT has the decomposition, else a LutTable. Takes a LutTable,
+    a Coarse2Table of the config's tier, or any object with a numpy
+    ``table`` and ``domain_min``/``domain_max`` (a parsed Lut3D, the JAX
+    package's PreparedLut). The upload and the coarse2 build happen here,
+    on the device, once per render function."""
     if lut is None or not cfg.apply_lut:
         return None
-    if isinstance(lut, LutTable):
+    if isinstance(lut, Coarse2Table):
+        if lut.tier != cfg.lut_precision:
+            raise ValueError(f"a {lut.tier} table cannot render "
+                             f"lut_precision={cfg.lut_precision!r}")
         return lut.to(device)
-    if isinstance(lut, PreparedLut):
-        return LutTable.from_prepared(lut, device)
-    return LutTable.from_lut3d(lut, device)
+    table = (lut.to(device) if isinstance(lut, LutTable)
+             else LutTable.from_prepared(lut, device))
+    tier = lut_tier(cfg.lut_precision, table.size)
+    if tier == "exact":
+        return table
+    return Coarse2Table.from_lut_table(table, tier)
 
 
 class _Renderer:
-    """The prepared callable for one (cfg, LUT size/domain, device): the
-    device's Bayer tensor and the config, with the LUT table passed per
+    """The prepared callable for one (cfg, LUT size/domain/tier, device):
+    the device's Bayer tensor and the config, with the LUT table passed per
     call so that LUTs of one size share it."""
 
     def __init__(self, cfg: RenderConfig, device: torch.device):

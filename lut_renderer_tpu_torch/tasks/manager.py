@@ -26,7 +26,7 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
-from lut_renderer_tpu.models import Task, TaskStatus
+from ..models import Task, TaskStatus
 
 from .runner import TaskRunner
 from .signals import Signal
@@ -176,7 +176,7 @@ class TaskManager:
         if new_output_path is not None:
             task.output_path = new_output_path
         else:
-            from lut_renderer_tpu.app.naming import output_path_for
+            from ..app.naming import output_path_for
 
             task.output_path = output_path_for(
                 task.source_path, task.output_path.parent
@@ -197,8 +197,8 @@ class TaskManager:
         defaults re-run per source (blank resolution/bitrate from probe),
         the copy-codec+LUT guard re-applied, and fresh non-colliding output
         paths generated. Returns the number of tasks updated."""
-        from lut_renderer_tpu.app.defaults import apply_smart_defaults
-        from lut_renderer_tpu.app.naming import cover_path_for, output_path_for
+        from ..app.defaults import apply_smart_defaults
+        from ..app.naming import cover_path_for, output_path_for
 
         updated = []
         with self._lock:
@@ -218,7 +218,7 @@ class TaskManager:
                 if task.params.generate_cover else None
             )
             if task.params.processing_mode == "pro" and task.intermediate_path:
-                from lut_renderer_tpu.app.naming import intermediate_path_for
+                from ..app.naming import intermediate_path_for
 
                 task.intermediate_path = intermediate_path_for(
                     task.source_path, task.intermediate_path.parent
@@ -271,7 +271,7 @@ class TaskManager:
         import json
         from pathlib import Path as _P
 
-        from lut_renderer_tpu.models import ProcessingParams
+        from ..models import ProcessingParams
 
         data = json.loads(_P(path).read_text(encoding="utf-8"))
         count = 0
@@ -283,7 +283,7 @@ class TaskManager:
             src = _P(item["source_path"])
             if probe and src.exists():
                 try:
-                    from lut_renderer_tpu.hostio import probe_video
+                    from ..hostio import probe_video
 
                     info = probe_video(src)
                 except Exception:

@@ -14,9 +14,9 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
-from lut_renderer_tpu.hostio import probe_video
-from lut_renderer_tpu.models import Task, TaskStatus
-from lut_renderer_tpu.plan import build_pipeline, build_render_spec
+from ..hostio import probe_video
+from ..models import Task, TaskStatus
+from ..plan import build_pipeline, build_render_spec
 
 from ..engine.executor import run_stage
 from ..ops.prepare import LutTable
@@ -32,7 +32,7 @@ _LUT_CACHE_MAX = 4
 def load_lut_table(path: Path, device) -> LutTable:
     """Parse a .cube and upload it to `device`, cached by (path, mtime,
     device); small LRU."""
-    from lut_renderer_tpu.colorcore import parse_cube_file
+    from ..colorcore import parse_cube_file
 
     path = Path(path)
     key = (str(path.resolve()), path.stat().st_mtime_ns, str(device))

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from lut_renderer_tpu.colorcore import Lut3D
+from lut_renderer_tpu_torch.colorcore import Lut3D
 from lut_renderer_tpu_torch.ops.render import RenderConfig
 
 # the suite runs under several xdist workers, each with its own threads
