@@ -17,10 +17,14 @@ through the port's CLI. Phases:
                          97^3, 129^3 x coarse2f/coarse2/coarse2x, 5 interps
                          at 129^3, coarse2f_tri; <= 1e-5 absolute; times
                          beside kernel A's exact table at each N
-  3. kernel B            whole-frame YUV->YUV vs plain: 4K 420p8 and the
-                         geometry/depth/range/dither matrix, exact and
-                         coarse2f tables; max |d| <= 1 code value on fewer
-                         than 1e-3 of pixels
+  3. kernel B            whole-frame YUV->YUV vs plain: 4K 420p8 (ramp and
+                         uniform-random frames) and the geometry/depth/
+                         range/dither matrix, exact and coarse2f tables;
+                         max |d| <= 1 code value on fewer than 1e-3 of
+                         pixels; times of launches prepared once
+  3P. stage probe        kernel B built as io, color and full
+                         (probes/kernel_b.py) at 4K x 2 33^3, timed on both
+                         kinds of frames
   4. main path           the executor's device loop over 48 seeded 4K
                          frames; kernel launch counts, fps end to end
   4C. big-cube path      the same loop over 16 4K frames at 129^3
@@ -42,7 +46,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -52,7 +55,6 @@ from pathlib import Path
 
 import numpy as np
 
-SEED = 20260
 TETRA = "tetrahedral"
 INTERPS = ("nearest", "trilinear", "tetrahedral", "pyramid", "prism")
 LUT_ATOL = 1e-5
@@ -104,37 +106,6 @@ def table_bytes(table) -> int:
                for n in names)
 
 
-def random_lut(n: int, seed: int):
-    from lut_renderer_tpu_torch.colorcore import Lut3D
-
-    rng = np.random.default_rng(seed)
-    lut = Lut3D.identity(n)
-    table = np.clip(lut.table + rng.uniform(-0.06, 0.06, lut.table.shape)
-                    .astype(np.float32), 0, 1).astype(np.float32)
-    return Lut3D(table=table, title=f"smoke{n}")
-
-
-def time_ms(fn, iters: int, warmup: int = 2, reps: int = 3) -> float:
-    """Milliseconds per call of fn() on the card: CUDA events around
-    `iters` back-to-back calls, the median of `reps` such runs."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        per_call.append(a.elapsed_time(b) / iters)
-    return statistics.median(per_call)
-
-
 def code_diff(got, want, what: str) -> int:
     """Integer contract on (y, u, v); returns the max |d|."""
     worst = 0
@@ -149,27 +120,6 @@ def code_diff(got, want, what: str) -> int:
             fail(f"{what} plane {name}: max|d|={d.max()} rate={rate}")
         worst = max(worst, int(d.max()))
     return worst
-
-
-def yuv_frames(seed: int, b: int, h: int, w: int, depth: int = 8,
-               in_sub: str = "420"):
-    """Seeded frames: smooth ramps that move per frame, plus noise."""
-    rng = np.random.default_rng(seed)
-    hi = (1 << depth) - 1
-    dt = np.uint16 if depth > 8 else np.uint8
-    hc = h // 2 if in_sub == "420" else h
-    wc = w // 2 if in_sub in ("420", "422") else w
-
-    def plane(hh, ww, fx, fy, i):
-        ramp = (np.linspace(0, fx, ww, dtype=np.float32)[None, :]
-                + np.linspace(0, fy, hh, dtype=np.float32)[:, None])
-        noise = rng.integers(0, 8, (hh, ww)).astype(np.float32)
-        return np.clip((ramp + 0.03 * i) % 1.0 * hi + noise, 0, hi).astype(dt)
-
-    ys = np.stack([plane(h, w, 0.7, 0.3, i) for i in range(b)])
-    us = np.stack([plane(hc, wc, 0.2, 0.6, i + 5) for i in range(b)])
-    vs = np.stack([plane(hc, wc, 0.5, 0.1, i + 9) for i in range(b)])
-    return ys, us, vs
 
 
 def main() -> int:
@@ -191,6 +141,15 @@ def main() -> int:
     from lut_renderer_tpu_torch.ops.prepare import Coarse2Table, LutTable
     from lut_renderer_tpu_torch.ops.pixel import render_planes
     from lut_renderer_tpu_torch.ops.render import RenderConfig, make_render_fn
+    from lut_renderer_tpu_torch.probes import kernel_b
+    from lut_renderer_tpu_torch.probes.harness import (
+        KERNEL_B_CASES,
+        SEED,
+        random_lut,
+        time_ms,
+        uniform_frames,
+        yuv_frames,
+    )
 
     # ---- 1. card and build ------------------------------------------------
     card = card_line()
@@ -328,36 +287,41 @@ def main() -> int:
     main_cfg = RenderConfig()
     worst_b, planes4k, tab = fused_check(main_cfg, bsz, 2160, 3840, lut33,
                                          SEED + 1, "4K 420p8")
-    cases = {
-        "422p10->422p10": (dict(in_depth=10, out_depth=10,
-                                in_subsampling="422", out_subsampling="422"),
-                           (1, 1080, 1920), lut33),
-        "422p10->420p8 ordered": (dict(in_depth=10, in_subsampling="422",
-                                       dither="ordered"),
-                                  (1, 1080, 1920), lut33),
-        "full-range 420 requantise": (dict(in_full_range=True),
-                                      (1, 1080, 1920), lut33),
-        "random dither": (dict(dither="random"), (1, 1080, 1920), lut33),
-        "444->444 odd width": (dict(in_subsampling="444",
-                                    out_subsampling="444", dither="ordered"),
-                               (1, 360, 641), lut33),
-        "1080p 65^3": (dict(), (1, 1080, 1920), random_lut(65, SEED + 65)),
-        "1080p 129^3": (dict(), (1, 1080, 1920), random_lut(129, SEED + 129)),
-    }
-    for i, (what, (kw, (b, h, w), lut)) in enumerate(cases.items()):
+    cases = KERNEL_B_CASES
+    for what, (kw, (b, h, w), (n, lut_seed), seed) in cases.items():
+        lut = lut33 if n == 33 else random_lut(n, SEED + lut_seed)
         d, _, _ = fused_check(replace(main_cfg, **kw), b, h, w, lut,
-                              SEED + 10 + i, what)
+                              SEED + seed, what)
         worst_b = max(worst_b, d)
-    b_ms = time_ms(lambda: fused420.render_fused420(*planes4k, tab, main_cfg),
-                   20)
+    # kernel times: launches prepared once and replayed from a CUDA graph,
+    # so that the wrapper's host work stays out of the device time; ramp
+    # frames (the main path's) and uniform-random codes (the worst case for
+    # divergence and gathers)
+    uniform4k = [torch.from_numpy(p).to(dev)
+                 for p in uniform_frames(SEED + 1, bsz, 2160, 3840)]
+    d = code_diff(fused420.render_fused420(*uniform4k, tab, main_cfg),
+                  fused420.render_fused420_reference(*uniform4k, tab,
+                                                     main_cfg),
+                  "kernel B 4K 420p8 uniform-random")
+    worst_b = max(worst_b, d)
+    b_ms = time_ms(fused420.prepared_launch(*planes4k, tab, main_cfg)[0], 20,
+                   graph=True)
+    b_uniform = time_ms(
+        fused420.prepared_launch(*uniform4k, tab, main_cfg)[0], 20,
+        graph=True)
+    b_wrapper = time_ms(
+        lambda: fused420.render_fused420(*planes4k, tab, main_cfg), 20)
     b_plain = time_ms(
         lambda: fused420.render_fused420_reference(*planes4k, tab, main_cfg), 3)
-    print(f"phase 3 kernel B: 4K 420p8 + {len(cases)} cases, "
-          f"max|d|={worst_b} code value(s) (contract <= 1 on < 1e-3 of px); "
-          f"{bsz}x3840x2160 420p8 tetrahedral: kernel {b_ms:.3f} ms, "
-          f"plain {b_plain:.3f} ms", flush=True)
+    print(f"phase 3 kernel B: 4K 420p8 ramp and uniform-random + "
+          f"{len(cases)} cases, max|d|={worst_b} code value(s) (contract "
+          f"<= 1 on < 1e-3 of px); {bsz}x3840x2160 420p8 tetrahedral: "
+          f"kernel {b_ms:.3f} ms (uniform-random frames {b_uniform:.3f} "
+          f"ms; through the wrapper {b_wrapper:.3f} ms), plain "
+          f"{b_plain:.3f} ms", flush=True)
     report["B"] = dict(err=worst_b, ms=b_ms, plain_ms=b_plain,
-                       table=table_bytes(tab))
+                       uniform_ms=b_uniform, table=table_bytes(tab))
+    del uniform4k
 
     # kernel B's coarse2 instantiation at 4K, beside the exact one at the
     # same N on the same planes (exact, coarse2, coarse2, exact)
@@ -370,16 +334,28 @@ def main() -> int:
                                       tier=BIG)
         worst_b2 = max(worst_b2, d)
         tab_x = LutTable.from_lut3d(lut, dev)
-        run_x = lambda: fused420.render_fused420(*planes, tab_x, main_cfg)  # noqa: E731
-        run_2 = lambda: fused420.render_fused420(*planes, tab2, big_cfg)  # noqa: E731
-        t = [time_ms(f, 20) for f in (run_x, run_2, run_2, run_x)]
+        run_x = fused420.prepared_launch(*planes, tab_x, main_cfg)[0]
+        run_2 = fused420.prepared_launch(*planes, tab2, big_cfg)[0]
+        t = [time_ms(f, 20, graph=True) for f in (run_x, run_2, run_2, run_x)]
         b2_times[n] = dict(B_ms=(t[0] + t[3]) / 2, B_coarse2_ms=(t[1] + t[2]) / 2)
         if n == 129:
+            uniform = [torch.from_numpy(p).to(dev)
+                       for p in uniform_frames(SEED + 1, bsz, 2160, 3840)]
+            d = code_diff(fused420.render_fused420(*uniform, tab2, big_cfg),
+                          fused420.render_fused420_reference(*uniform, tab2,
+                                                             big_cfg),
+                          f"kernel B 4K 420p8 {n}^3 {BIG} uniform-random")
+            worst_b2 = max(worst_b2, d)
+            b2_uniform = time_ms(
+                fused420.prepared_launch(*uniform, tab2, big_cfg)[0], 20,
+                graph=True)
             b2_plain = time_ms(lambda: fused420.render_fused420_reference(
                 *planes, tab2, big_cfg), 2, warmup=1)
             report["B coarse2"] = dict(ms=b2_times[n]["B_coarse2_ms"],
                                        plain_ms=b2_plain,
+                                       uniform_ms=b2_uniform,
                                        table=table_bytes(tab2))
+            del uniform
     d, _, _ = fused_check(replace(big_cfg, in_depth=10, out_depth=10,
                                   in_subsampling="422",
                                   out_subsampling="422", dither="random"),
@@ -387,13 +363,24 @@ def main() -> int:
                           SEED + 30, "422p10 129^3 coarse2x", tier="coarse2x")
     worst_b2 = max(worst_b2, d)
     report["B coarse2"]["err"] = worst_b2
-    print(f"phase 3 kernel B coarse2: 4K 420p8 at 65^3 and 129^3 {BIG} + "
-          f"1080p 422p10 129^3 coarse2x random dither, max|d|={worst_b2} "
-          f"code value(s); {bsz}x3840x2160 420p8 tetrahedral: " + ", ".join(
+    print(f"phase 3 kernel B coarse2: 4K 420p8 at 65^3 and 129^3 {BIG} "
+          f"(129^3 also on uniform-random frames) + 1080p 422p10 129^3 "
+          f"coarse2x random dither, max|d|={worst_b2} code value(s); "
+          f"{bsz}x3840x2160 420p8 tetrahedral: " + ", ".join(
               f"{n}^3 coarse2 {v['B_coarse2_ms']:.3f} ms vs exact "
               f"{v['B_ms']:.3f} ms" for n, v in b2_times.items())
-          + f"; plain at 129^3 {b2_plain:.3f} ms", flush=True)
+          + f"; 129^3 coarse2 on uniform-random frames {b2_uniform:.3f} ms; "
+          f"plain at 129^3 {b2_plain:.3f} ms", flush=True)
     del planes4k, rgb4k, rgb_b, planes
+
+    # ---- 3P. kernel B's stage probe -------------------------------------
+    stages = kernel_b.stage_times(dev)["current"]
+    print("phase 3P kernel B stages, 4K x 2 420p8 33^3 tetrahedral (io: "
+          "load/convert/quantise/store; color: + range, YUV<->RGB, dither, "
+          "downsample; full: + LUT): " + "; ".join(
+              f"{frames} frames " + ", ".join(
+                  f"{s} {ms:.4f} ms" for s, ms in t.items())
+              for frames, t in stages.items()), flush=True)
 
     # ---- 4. main path -----------------------------------------------------
     n_frames = 48
@@ -625,7 +612,8 @@ def main() -> int:
               "lut_renderer_tpu/ops/lut3d.py:699", launches["A"]),
         "B": ("fused420 (kernel B, exact table)", "fused420.cu",
               "lut_renderer_tpu/ops/fused420.py:280", launches["B"]),
-        "B coarse2": ("fused420 (kernel B, coarse2 table)", "fused420.cu",
+        "B coarse2": ("fused420 (kernel B, coarse2 table)",
+                      "fused420_coarse2.cu",
                       "lut_renderer_tpu/ops/fused420.py:280",
                       big_launches["B coarse2"]),
         "C": ("coarse2 (kernel C)", "coarse2.cu",
@@ -645,6 +633,9 @@ def main() -> int:
             "library_ms": r.get("library_ms")})
     kernels[0].update(library_case="trilinear, torch grid_sample",
                       trilinear_ms=report["A"]["trilinear_ms"])
+    for entry, key in zip(kernels[1:3], ("B", "B coarse2")):
+        entry["uniform_frames_ms"] = report[key]["uniform_ms"]
+    kernels[1]["stages_ms"] = stages
     print(json.dumps({"main_path_fps": fps, "cold_pass_fps": cold_fps,
                       "frames": n_frames,
                       "batch": bsz, "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,

@@ -9,8 +9,8 @@
 //
 //   residual  the interp's corners of the (N, N, N, 4) int8 table (one
 //             4-byte char4 load each) times the scale of the corner's
-//             r index and channel (one float4 load per r index), in the
-//             order of interp_cell;
+//             r index and channel (one float4 load for each of the cell's
+//             two r lines), in the order of interp_cell;
 //   coarse    the interp's 8 fine-corner weights folded through the
 //             per-axis 2x2 remap onto one 8-corner coarse cell (the coarse
 //             cell index p / 2 is the same for every pass of an interp),
@@ -59,11 +59,7 @@ __global__ void coarse2_kernel(Coarse2Params p) {
   C.n = p.n;
   C.m = p.m;
   C.resid_interp = p.resid_interp;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    C.dmin[i] = p.dmin[i];
-    C.dmax[i] = p.dmax[i];
-  }
+  lutk::set_domain(C, p.dmin, p.dmax);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < p.npix; i += stride) {

@@ -40,11 +40,7 @@ __global__ void lut3d_kernel(Lut3dParams p) {
   lutk::LutArgs L;
   L.table = p.table;
   L.n = p.n;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    L.dmin[i] = p.dmin[i];
-    L.dmax[i] = p.dmax[i];
-  }
+  lutk::set_domain(L, p.dmin, p.dmax);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < p.npix; i += stride) {

@@ -7,6 +7,12 @@
 // built with -fmad=false, so no multiply-add is contracted and each
 // operation rounds like the NumPy and PyTorch versions do.
 //
+// The interpolation is a template parameter. Kernel B instantiates one
+// kernel per interp; kernels A and C pick one at run time (lut_apply with
+// an `interp` argument). The tetrahedral case split is selects, not
+// branches, so that the lanes of a warp in different tetrahedra run one
+// instruction stream.
+//
 // Two table kinds, each with a lut_apply overload:
 //   LutArgs      the exact table, (N, N, N, 4) float32 indexed [r][g][b],
 //                RGB padded to 16 bytes so that one corner is one 16-byte
@@ -32,24 +38,55 @@ enum Interp : int {
 struct LutArgs {
   const float4* table;  // (n, n, n, 4) f32
   int n;
+  int unit;  // the domain is [0, 1] on every axis
   float dmin[3];
   float dmax[3];
 };
+
+struct Coarse2Args {
+  const float4* coarse;  // (m, m, m, 4) f32: dequantised coarse + identity
+  const char4* resid;    // (n, n, n, 4) int8 residual
+  const float4* rscale;  // (n, 4) f32: residual scale of (r index, channel);
+                         // global or shared memory
+  int n;
+  int m;
+  int resid_interp;  // the residual term's interp (trilinear for _tri)
+  int unit;
+  float dmin[3];
+  float dmax[3];
+};
+
+// The domain of either table kind, and whether it is [0, 1] on every axis.
+template <class Args>
+__device__ __forceinline__ void set_domain(Args& a, const float* dmin,
+                                           const float* dmax) {
+  a.unit = 1;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    a.dmin[i] = dmin[i];
+    a.dmax[i] = dmax[i];
+    a.unit &= dmin[i] == 0.0f && dmax[i] == 1.0f;
+  }
+}
 
 __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-struct Coarse2Args {
-  const float4* coarse;  // (m, m, m, 4) f32: dequantised coarse + identity
-  const char4* resid;    // (n, n, n, 4) int8 residual
-  const float4* rscale;  // (n, 4) f32: residual scale of (r index, channel)
-  int n;
-  int m;
-  int resid_interp;  // the residual term's interp (trilinear for _tri)
-  float dmin[3];
-  float dmax[3];
+// floorf(x) and (int)floorf(x) for 0 <= x < 2^23 (or x = -0), from two f32
+// adds and an integer subtraction: x + 2^23 rounded toward zero holds
+// trunc(x) = floor(x) in its low mantissa bits. Bit-equal to the two
+// conversions it replaces, which run at a quarter of the f32 rate on the
+// card's conversion pipe.
+struct Floor {
+  float f;
+  int i;
 };
+
+__device__ __forceinline__ Floor floor_nonneg(float x) {
+  const float t = __fadd_rz(x, 8388608.0f);
+  return {t - 8388608.0f, __float_as_int(t) - 0x4B000000};
+}
 
 // corner fetchers: (r, g, b) grid indices -> the table value there
 struct F32Corners {
@@ -60,15 +97,29 @@ struct F32Corners {
   }
 };
 
+// (float)v for the int8 in byte k of w ^ 0x80808080 (v + 128): 2^23 + v +
+// 128 assembled in the bits, less 2^23 + 128, both exact. One byte
+// permute and one add in place of a conversion.
+__device__ __forceinline__ float int8_to_float(unsigned int biased, int k) {
+  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + k)) -
+         8388736.0f;
+}
+
+// The residual of one cell: the scale depends only on the corner's r
+// index, so it is read once for each of the cell's two r lines (r_lo and
+// its clamped next) and selected per corner.
 struct ResidCorners {
   const char4* q;
-  const float4* scale;
   int n;
+  int r_lo;
+  float4 s_lo;
+  float4 s_hi;
   __device__ __forceinline__ float4 operator()(int r, int g, int b) const {
-    const char4 v = __ldg(q + ((r * n + g) * n + b));
-    const float4 s = __ldg(scale + r);
-    return make_float4((float)v.x * s.x, (float)v.y * s.y, (float)v.z * s.z,
-                       0.0f);
+    const unsigned int v =
+        __ldg((const unsigned int*)(q + ((r * n + g) * n + b))) ^ 0x80808080u;
+    const float4 s = r == r_lo ? s_lo : s_hi;
+    return make_float4(int8_to_float(v, 0) * s.x, int8_to_float(v, 1) * s.y,
+                       int8_to_float(v, 2) * s.z, 0.0f);
   }
 };
 
@@ -88,118 +139,133 @@ __device__ __forceinline__ float4 operator*(float s, float4 a) {
   return make_float4(s * a.x, s * a.y, s * a.z, 0.0f);
 }
 
-// interp._prepare: clip, map through the domain, clip, scale by N-1.
+// interp._prepare: clip, map through the domain, clip, scale by N-1. On
+// the [0, 1] domain clip01((clip01(x) - 0) / 1) is clip01(x) bit for bit,
+// so the division is skipped.
 __device__ __forceinline__ float scaled_coord(float x, float dmin, float dmax,
-                                              int n) {
-  float span = dmax - dmin;
-  float t = clip01((clip01(x) - dmin) / span);
+                                              int n, int unit) {
+  const float t = unit ? clip01(x) : clip01((clip01(x) - dmin) / (dmax - dmin));
   return t * (float)(n - 1);
+}
+
+// FFmpeg's tetrahedral cases, strict '>', as one form: with the deltas
+// sorted x >= y >= z, the corners 000, A (one step along x's axis), B (A
+// plus one step along y's axis) and 111 weigh (1 - x), (x - y), (y - z)
+// and z. Each of the six cases of colorcore.interp has this form and this
+// order of evaluation, ties included.
+struct Tetra {
+  float x, y, z;
+  bool ar, ag, ab;  // A's axis
+  bool br, bg, bb;  // B's axes (all but z's)
+};
+
+__device__ __forceinline__ Tetra tetra_case(float dr, float dg, float db) {
+  const bool rg = dr > dg, gb = dg > db, rb = dr > db, bgt = db > dg,
+             brt = db > dr;
+  Tetra t;
+  // x: r in cases 1-2 (dr > dg, and dg > db or dr > db), g in 5-6
+  t.ar = rg && (gb || rb);
+  t.ag = !rg && !bgt;
+  t.ab = !t.ar && !t.ag;
+  // z: b in cases 1 and 6, g in 2-3, r in 4-5
+  const bool zg = rg && !gb;
+  const bool zr = !rg && (bgt || brt);
+  const bool zb = !zg && !zr;
+  const bool yr = !t.ar && !zr, yg = !t.ag && !zg;
+  t.x = t.ar ? dr : (t.ag ? dg : db);
+  t.y = yr ? dr : (yg ? dg : db);
+  t.z = zr ? dr : (zg ? dg : db);
+  t.br = !zr;
+  t.bg = !zg;
+  t.bb = !zb;
+  return t;
 }
 
 // The interpolation of the grid cell at scaled coordinates (sr, sg, sb),
 // reading corners through `corner`; top = N - 1.
-template <class Corner>
-__device__ __forceinline__ float4 interp_cell(const Corner& corner,
-                                              int interp, float sr, float sg,
-                                              float sb, int top) {
-
-  if (interp == kNearest) {
+template <int INTERP, class Corner>
+__device__ __forceinline__ float4 interp_cell(const Corner& corner, float sr,
+                                              float sg, float sb, int top) {
+  if constexpr (INTERP == kNearest) {
     // NEAR(x) = trunc(x + 0.5), clipped to the grid
-    int ir = min(max((int)floorf(sr + 0.5f), 0), top);
-    int ig = min(max((int)floorf(sg + 0.5f), 0), top);
-    int ib = min(max((int)floorf(sb + 0.5f), 0), top);
+    int ir = min(max(floor_nonneg(sr + 0.5f).i, 0), top);
+    int ig = min(max(floor_nonneg(sg + 0.5f).i, 0), top);
+    int ib = min(max(floor_nonneg(sb + 0.5f).i, 0), top);
     return corner(ir, ig, ib);
-  }
+  } else {
+    const Floor fr = floor_nonneg(sr), fg = floor_nonneg(sg),
+                fb = floor_nonneg(sb);
+    const int r0 = fr.i, g0 = fg.i, b0 = fb.i;
+    const int r1 = min(r0 + 1, top), g1 = min(g0 + 1, top),
+              b1 = min(b0 + 1, top);
+    const float dr = sr - fr.f, dg = sg - fg.f, db = sb - fb.f;
 
-  const int r0 = (int)floorf(sr), g0 = (int)floorf(sg), b0 = (int)floorf(sb);
-  const int r1 = min(r0 + 1, top), g1 = min(g0 + 1, top), b1 = min(b0 + 1, top);
-  const float dr = sr - (float)r0, dg = sg - (float)g0, db = sb - (float)b0;
-
-  if (interp == kTrilinear) {
-    float4 c000 = corner(r0, g0, b0), c001 = corner(r0, g0, b1);
-    float4 c010 = corner(r0, g1, b0), c011 = corner(r0, g1, b1);
-    float4 c100 = corner(r1, g0, b0), c101 = corner(r1, g0, b1);
-    float4 c110 = corner(r1, g1, b0), c111 = corner(r1, g1, b1);
-    float4 c00 = c000 * (1.0f - db) + c001 * db;
-    float4 c01 = c010 * (1.0f - db) + c011 * db;
-    float4 c10 = c100 * (1.0f - db) + c101 * db;
-    float4 c11 = c110 * (1.0f - db) + c111 * db;
-    float4 c0 = c00 * (1.0f - dg) + c01 * dg;
-    float4 c1 = c10 * (1.0f - dg) + c11 * dg;
-    return c0 * (1.0f - dr) + c1 * dr;
-  }
-
-  if (interp == kPyramid) {
-    float4 c000 = corner(r0, g0, b0), c111 = corner(r1, g1, b1);
-    if (dg > dr && db > dr) {
-      float4 c001 = corner(r0, g0, b1), c010 = corner(r0, g1, b0);
-      float4 c011 = corner(r0, g1, b1);
-      return c000 + (c111 - c011) * dr + (c010 - c000) * dg +
-             (c001 - c000) * db + (c011 - c001 - c010 + c000) * dg * db;
-    }
-    if (dr > dg && db > dg) {
-      float4 c100 = corner(r1, g0, b0), c001 = corner(r0, g0, b1);
-      float4 c101 = corner(r1, g0, b1);
-      return c000 + (c100 - c000) * dr + (c111 - c101) * dg +
-             (c001 - c000) * db + (c101 - c100 - c001 + c000) * dr * db;
-    }
-    float4 c100 = corner(r1, g0, b0), c010 = corner(r0, g1, b0);
-    float4 c110 = corner(r1, g1, b0);
-    return c000 + (c100 - c000) * dr + (c010 - c000) * dg +
-           (c111 - c110) * db + (c110 - c100 - c010 + c000) * dr * dg;
-  }
-
-  if (interp == kPrism) {
-    // triangle over (r, b) in each g plane, linear along g
-    const bool upper = db > dr;
-    float4 f[2];
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int gi = p ? g1 : g0;
-      float4 v00 = corner(r0, gi, b0), v11 = corner(r1, gi, b1);
-      if (upper) {
-        float4 v01 = corner(r0, gi, b1);
-        f[p] = (1.0f - db) * v00 + (db - dr) * v01 + dr * v11;
-      } else {
-        float4 v10 = corner(r1, gi, b0);
-        f[p] = (1.0f - dr) * v00 + (dr - db) * v10 + db * v11;
+    if constexpr (INTERP == kTrilinear) {
+      float4 c000 = corner(r0, g0, b0), c001 = corner(r0, g0, b1);
+      float4 c010 = corner(r0, g1, b0), c011 = corner(r0, g1, b1);
+      float4 c100 = corner(r1, g0, b0), c101 = corner(r1, g0, b1);
+      float4 c110 = corner(r1, g1, b0), c111 = corner(r1, g1, b1);
+      float4 c00 = c000 * (1.0f - db) + c001 * db;
+      float4 c01 = c010 * (1.0f - db) + c011 * db;
+      float4 c10 = c100 * (1.0f - db) + c101 * db;
+      float4 c11 = c110 * (1.0f - db) + c111 * db;
+      float4 c0 = c00 * (1.0f - dg) + c01 * dg;
+      float4 c1 = c10 * (1.0f - dg) + c11 * dg;
+      return c0 * (1.0f - dr) + c1 * dr;
+    } else if constexpr (INTERP == kPyramid) {
+      float4 c000 = corner(r0, g0, b0), c111 = corner(r1, g1, b1);
+      if (dg > dr && db > dr) {
+        float4 c001 = corner(r0, g0, b1), c010 = corner(r0, g1, b0);
+        float4 c011 = corner(r0, g1, b1);
+        return c000 + (c111 - c011) * dr + (c010 - c000) * dg +
+               (c001 - c000) * db + (c011 - c001 - c010 + c000) * dg * db;
       }
+      if (dr > dg && db > dg) {
+        float4 c100 = corner(r1, g0, b0), c001 = corner(r0, g0, b1);
+        float4 c101 = corner(r1, g0, b1);
+        return c000 + (c100 - c000) * dr + (c111 - c101) * dg +
+               (c001 - c000) * db + (c101 - c100 - c001 + c000) * dr * db;
+      }
+      float4 c100 = corner(r1, g0, b0), c010 = corner(r0, g1, b0);
+      float4 c110 = corner(r1, g1, b0);
+      return c000 + (c100 - c000) * dr + (c010 - c000) * dg +
+             (c111 - c110) * db + (c110 - c100 - c010 + c000) * dr * dg;
+    } else if constexpr (INTERP == kPrism) {
+      // triangle over (r, b) in each g plane, linear along g
+      const bool upper = db > dr;
+      float4 f[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int gi = p ? g1 : g0;
+        float4 v00 = corner(r0, gi, b0), v11 = corner(r1, gi, b1);
+        if (upper) {
+          float4 v01 = corner(r0, gi, b1);
+          f[p] = (1.0f - db) * v00 + (db - dr) * v01 + dr * v11;
+        } else {
+          float4 v10 = corner(r1, gi, b0);
+          f[p] = (1.0f - dr) * v00 + (dr - db) * v10 + db * v11;
+        }
+      }
+      return f[0] * (1.0f - dg) + f[1] * dg;
+    } else {  // tetrahedral (also every unknown name)
+      const Tetra t = tetra_case(dr, dg, db);
+      const float4 c000 = corner(r0, g0, b0), c111 = corner(r1, g1, b1);
+      const float4 ca = corner(t.ar ? r1 : r0, t.ag ? g1 : g0, t.ab ? b1 : b0);
+      const float4 cb = corner(t.br ? r1 : r0, t.bg ? g1 : g0, t.bb ? b1 : b0);
+      return (1.0f - t.x) * c000 + (t.x - t.y) * ca + (t.y - t.z) * cb +
+             t.z * c111;
     }
-    return f[0] * (1.0f - dg) + f[1] * dg;
   }
-
-  // tetrahedral (also every unknown name): FFmpeg's 6 cases, strict '>'
-  float4 c000 = corner(r0, g0, b0), c111 = corner(r1, g1, b1);
-  if (dr > dg) {
-    if (dg > db) {
-      return (1.0f - dr) * c000 + (dr - dg) * corner(r1, g0, b0) +
-             (dg - db) * corner(r1, g1, b0) + db * c111;
-    }
-    if (dr > db) {
-      return (1.0f - dr) * c000 + (dr - db) * corner(r1, g0, b0) +
-             (db - dg) * corner(r1, g0, b1) + dg * c111;
-    }
-    return (1.0f - db) * c000 + (db - dr) * corner(r0, g0, b1) +
-           (dr - dg) * corner(r1, g0, b1) + dg * c111;
-  }
-  if (db > dg) {
-    return (1.0f - db) * c000 + (db - dg) * corner(r0, g0, b1) +
-           (dg - dr) * corner(r0, g1, b1) + dr * c111;
-  }
-  if (db > dr) {
-    return (1.0f - dg) * c000 + (dg - db) * corner(r0, g1, b0) +
-           (db - dr) * corner(r0, g1, b1) + dr * c111;
-  }
-  return (1.0f - dg) * c000 + (dg - dr) * corner(r0, g1, b0) +
-         (dr - db) * corner(r1, g1, b0) + db * c111;
 }
 
-__device__ __forceinline__ float4 lut_apply(const LutArgs& L, int interp,
-                                            float r, float g, float b) {
-  return interp_cell(F32Corners{L.table, L.n}, interp,
-                     scaled_coord(r, L.dmin[0], L.dmax[0], L.n),
-                     scaled_coord(g, L.dmin[1], L.dmax[1], L.n),
-                     scaled_coord(b, L.dmin[2], L.dmax[2], L.n), L.n - 1);
+template <int INTERP>
+__device__ __forceinline__ float4 lut_apply(const LutArgs& L, float r,
+                                            float g, float b) {
+  return interp_cell<INTERP>(
+      F32Corners{L.table, L.n},
+      scaled_coord(r, L.dmin[0], L.dmax[0], L.n, L.unit),
+      scaled_coord(g, L.dmin[1], L.dmax[1], L.n, L.unit),
+      scaled_coord(b, L.dmin[2], L.dmax[2], L.n, L.unit), L.n - 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -209,19 +275,21 @@ __device__ __forceinline__ float4 lut_apply(const LutArgs& L, int interp,
 // The interp's weights on the 8 corners of the fine cell, w[i][j][k] for
 // corner (r0 + i, g0 + j, b0 + k), the next index clamped to the grid as in
 // interp_cell. The same cases and strict comparisons as interp_cell.
-__device__ __forceinline__ void cell_weights(int interp, float sr, float sg,
-                                             float sb, int top,
-                                             float w[2][2][2]) {
+template <int INTERP>
+__device__ __forceinline__ void cell_weights(float sr, float sg, float sb,
+                                             int top, float w[2][2][2]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) (&w[0][0][0])[i] = 0.0f;
-  const int r0 = (int)floorf(sr), g0 = (int)floorf(sg), b0 = (int)floorf(sb);
-  const float dr = sr - (float)r0, dg = sg - (float)g0, db = sb - (float)b0;
+  const Floor fr = floor_nonneg(sr), fg = floor_nonneg(sg),
+              fb = floor_nonneg(sb);
+  const int r0 = fr.i, g0 = fg.i, b0 = fb.i;
+  const float dr = sr - fr.f, dg = sg - fg.f, db = sb - fb.f;
 
-  if (interp == kNearest) {
+  if constexpr (INTERP == kNearest) {
     // NEAR(x) = trunc(x + 0.5): the prev or the next corner of the cell
-    const int ir = min(max((int)floorf(sr + 0.5f), 0), top) - r0;
-    const int ig = min(max((int)floorf(sg + 0.5f), 0), top) - g0;
-    const int ib = min(max((int)floorf(sb + 0.5f), 0), top) - b0;
+    const int ir = min(max(floor_nonneg(sr + 0.5f).i, 0), top) - r0;
+    const int ig = min(max(floor_nonneg(sg + 0.5f).i, 0), top) - g0;
+    const int ib = min(max(floor_nonneg(sb + 0.5f).i, 0), top) - b0;
     // selects, not w[ir][ig][ib]: a runtime index would put w in local
     // memory
 #pragma unroll
@@ -231,9 +299,7 @@ __device__ __forceinline__ void cell_weights(int interp, float sr, float sg,
 #pragma unroll
         for (int k = 0; k < 2; ++k)
           w[i][j][k] = (i == ir && j == ig && k == ib) ? 1.0f : 0.0f;
-    return;
-  }
-  if (interp == kTrilinear) {
+  } else if constexpr (INTERP == kTrilinear) {
     const float wr[2] = {1.0f - dr, dr}, wg[2] = {1.0f - dg, dg};
     const float wb[2] = {1.0f - db, db};
 #pragma unroll
@@ -242,9 +308,7 @@ __device__ __forceinline__ void cell_weights(int interp, float sr, float sg,
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int k = 0; k < 2; ++k) w[i][j][k] = wr[i] * wg[j] * wb[k];
-    return;
-  }
-  if (interp == kPyramid) {
+  } else if constexpr (INTERP == kPyramid) {
     if (dg > dr && db > dr) {
       w[0][0][0] = 1.0f - dg - db + dg * db;
       w[0][1][0] = dg - dg * db;
@@ -264,9 +328,7 @@ __device__ __forceinline__ void cell_weights(int interp, float sr, float sg,
       w[1][1][0] = dr * dg - db;
       w[1][1][1] = db;
     }
-    return;
-  }
-  if (interp == kPrism) {
+  } else if constexpr (INTERP == kPrism) {
     // triangle over (r, b) in each g plane, linear along g
     const bool upper = db > dr;
 #pragma unroll
@@ -281,29 +343,21 @@ __device__ __forceinline__ void cell_weights(int interp, float sr, float sg,
       }
       w[1][p][1] = (upper ? dr : db) * wg;
     }
-    return;
-  }
-  // tetrahedral (also every unknown name): FFmpeg's 6 cases, strict '>'
-  if (dr > dg) {
-    if (dg > db) {
-      w[0][0][0] = 1.0f - dr; w[1][0][0] = dr - dg;
-      w[1][1][0] = dg - db; w[1][1][1] = db;
-    } else if (dr > db) {
-      w[0][0][0] = 1.0f - dr; w[1][0][0] = dr - db;
-      w[1][0][1] = db - dg; w[1][1][1] = dg;
-    } else {
-      w[0][0][0] = 1.0f - db; w[0][0][1] = db - dr;
-      w[1][0][1] = dr - dg; w[1][1][1] = dg;
-    }
-  } else if (db > dg) {
-    w[0][0][0] = 1.0f - db; w[0][0][1] = db - dg;
-    w[0][1][1] = dg - dr; w[1][1][1] = dr;
-  } else if (db > dr) {
-    w[0][0][0] = 1.0f - dg; w[0][1][0] = dg - db;
-    w[0][1][1] = db - dr; w[1][1][1] = dr;
-  } else {
-    w[0][0][0] = 1.0f - dg; w[0][1][0] = dg - dr;
-    w[1][1][0] = dr - db; w[1][1][1] = db;
+  } else {  // tetrahedral (also every unknown name), one form as above
+    const Tetra t = tetra_case(dr, dg, db);
+    const float wa = t.x - t.y, wb = t.y - t.z;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const bool is_a = i == t.ar && j == t.ag && k == t.ab;
+          const bool is_b = i == t.br && j == t.bg && k == t.bb;
+          w[i][j][k] = is_a ? wa : (is_b ? wb : 0.0f);
+        }
+    w[0][0][0] = 1.0f - t.x;
+    w[1][1][1] = t.z;
   }
 }
 
@@ -333,11 +387,13 @@ __device__ __forceinline__ void remap_taps(float& w0, float& w1, bool even) {
 // is clamped to N - 1 = coarse M - 1, while the remap puts half of its
 // weight on coarse line p/2 + 1 = M, one past the grid. That line is
 // clamped to M - 1 too, so both halves land on fine N - 1's own value.
-__device__ __forceinline__ float4 coarse_term(const Coarse2Args& C, int interp,
-                                              float sr, float sg, float sb) {
+template <int INTERP>
+__device__ __forceinline__ float4 coarse_term(const Coarse2Args& C, float sr,
+                                              float sg, float sb) {
   float w[2][2][2];
-  cell_weights(interp, sr, sg, sb, C.n - 1, w);
-  const int pr = (int)floorf(sr), pg = (int)floorf(sg), pb = (int)floorf(sb);
+  cell_weights<INTERP>(sr, sg, sb, C.n - 1, w);
+  const int pr = floor_nonneg(sr).i, pg = floor_nonneg(sg).i,
+            pb = floor_nonneg(sb).i;
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -367,14 +423,40 @@ __device__ __forceinline__ float4 coarse_term(const Coarse2Args& C, int interp,
   return acc;
 }
 
-__device__ __forceinline__ float4 lut_apply(const Coarse2Args& C, int interp,
+template <int INTERP>
+__device__ __forceinline__ float4 lut_apply(const Coarse2Args& C, float r,
+                                            float g, float b) {
+  const float sr = scaled_coord(r, C.dmin[0], C.dmax[0], C.n, C.unit);
+  const float sg = scaled_coord(g, C.dmin[1], C.dmax[1], C.n, C.unit);
+  const float sb = scaled_coord(b, C.dmin[2], C.dmax[2], C.n, C.unit);
+  const int r0 = floor_nonneg(sr).i;
+  const ResidCorners rc{C.resid, C.n, r0, C.rscale[r0],
+                        C.rscale[min(r0 + 1, C.n - 1)]};
+  // the residual's interp is the render's own or, under a _tri tier,
+  // trilinear
+  const float4 resid =
+      C.resid_interp == kTrilinear
+          ? interp_cell<kTrilinear>(rc, sr, sg, sb, C.n - 1)
+          : interp_cell<INTERP>(rc, sr, sg, sb, C.n - 1);
+  return coarse_term<INTERP>(C, sr, sg, sb) + resid;
+}
+
+// The interp chosen at run time, for kernels A and C.
+template <class Args>
+__device__ __forceinline__ float4 lut_apply(const Args& a, int interp,
                                             float r, float g, float b) {
-  const float sr = scaled_coord(r, C.dmin[0], C.dmax[0], C.n);
-  const float sg = scaled_coord(g, C.dmin[1], C.dmax[1], C.n);
-  const float sb = scaled_coord(b, C.dmin[2], C.dmax[2], C.n);
-  const float4 resid = interp_cell(ResidCorners{C.resid, C.rscale, C.n},
-                                   C.resid_interp, sr, sg, sb, C.n - 1);
-  return coarse_term(C, interp, sr, sg, sb) + resid;
+  switch (interp) {
+    case kNearest:
+      return lut_apply<kNearest>(a, r, g, b);
+    case kTrilinear:
+      return lut_apply<kTrilinear>(a, r, g, b);
+    case kPyramid:
+      return lut_apply<kPyramid>(a, r, g, b);
+    case kPrism:
+      return lut_apply<kPrism>(a, r, g, b);
+    default:
+      return lut_apply<kTetrahedral>(a, r, g, b);
+  }
 }
 
 }  // namespace lutk

@@ -31,10 +31,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("lut3d.cu", "coarse2.cu", "fused420.cu")
-HEADERS = ("lut_interp.cuh",)
+SOURCES = ("lut3d.cu", "coarse2.cu", "fused420.cu", "fused420_coarse2.cu")
+HEADERS = ("lut_interp.cuh", "fused420.cuh")
 ENTRY_POINTS = ("lut3d_launch", "coarse2_launch", "fused420_launch",
-                "fused420_coarse2_launch")
+                "fused420_coarse2_launch", "fused420_io_launch",
+                "fused420_color_launch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
@@ -68,7 +69,7 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmds) -> None:
+def run_all(cmds) -> None:
     """Run the commands at once; raise with the output of the first that
     fails."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -88,15 +89,26 @@ def _compile(target: Path) -> None:
     tmp = BUILD_DIR / f"{tag}.tmp"
     nvcc = nvcc_path()
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+        run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
               for s, o in zip(SOURCES, objs)])
-        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+        run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *(str(o) for o in objs)]])
         os.replace(tmp, target)
     finally:
         tmp.unlink(missing_ok=True)
         for o in objs:
             o.unlink(missing_ok=True)
+
+
+def open_library(path: Path, entry_points) -> ctypes.CDLL:
+    """Load a built library and declare its entry points, each
+    ``int fn(const Params*, cudaStream_t)``."""
+    lib = ctypes.CDLL(str(path))
+    for name in entry_points:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
@@ -110,20 +122,18 @@ def load_library() -> ctypes.CDLL:
         target = BUILD_DIR / f"liblut_kernels_{_digest()}.so"
         if not target.exists():
             _compile(target)
-        lib = ctypes.CDLL(str(target))
-        for name in ENTRY_POINTS:
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        lib = open_library(target, ENTRY_POINTS)
         build_seconds = time.perf_counter() - t0
         _LIB = lib
         return lib
 
 
-def launch(fn_name: str, params: ctypes.Structure, device: torch.device):
-    """Launch `fn_name` with `params` on the current stream of `device`,
-    raising on any launch error the C entry point reports."""
-    lib = load_library()
+def launch(fn_name: str, params: ctypes.Structure, device: torch.device,
+           lib: Optional[ctypes.CDLL] = None):
+    """Launch `fn_name` of `lib` (the kernel library when None) with
+    `params` on the current stream of `device`, raising on any launch
+    error the C entry point reports."""
+    lib = lib or load_library()
     # makes the device's context current on this thread, which the
     # library's own CUDA runtime launches into
     with torch.cuda.device(device):

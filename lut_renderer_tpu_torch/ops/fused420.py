@@ -1,15 +1,18 @@
 """Whole-frame YUV -> YUV render in one kernel: kernel B and its plain version.
 
 Counterpart of lut_renderer_tpu/ops/fused420.py. On CUDA tensors
-``render_fused420`` launches kernel B (csrc/fused420.cu), which replaces
+``render_fused420`` launches kernel B (csrc/fused420.cuh), which replaces
 the JAX package's fused pallas_call: integer planes in, quantised integer
-planes out, the chroma downsample done in the kernel. Kernel B has two
-instantiations from one source, by the table it is given: the exact
-``LutTable`` and the coarse + residual ``Coarse2Table`` (kernel C's LUT
-step), each with its own launch count. On CPU tensors it runs
-``render_fused420_reference``: the plain layout of ops.pixel with the
-table's plain LUT, which is the value contract the JAX fused kernel is
-held to.
+planes out, the chroma downsample done in the kernel. Kernel B comes in
+two table kinds, by the table it is given: the exact ``LutTable``
+(csrc/fused420.cu) and the coarse + residual ``Coarse2Table`` (kernel C's
+LUT step, csrc/fused420_coarse2.cu), each with its own launch count and
+one instantiation per interpolation and output geometry.
+``launch_geometry`` picks its work units and whether the planes move as
+vectors. On CPU tensors it runs ``render_fused420_reference``: the plain
+layout of ops.pixel with the table's plain LUT, which is the value
+contract the JAX fused kernel is held to. ``prepared_launch`` serves
+the stage probe (probes/kernel_b.py) and counts no launch.
 
 It covers every nearest-sited {420, 422, 444} -> {420, 422, 444} geometry
 at 8 or 10 bits, full or limited range with the intermediate requantise,
@@ -24,7 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import types
-from typing import Union
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +46,17 @@ from .prepare import Coarse2Table, LutTable
 # coarse2 instantiation (reset by callers that check which path ran)
 launches = 0
 coarse2_launches = 0
+
+# kernel B built in stages, for the stage probe (probes/kernel_b.py): io
+# loads, converts, quantises and stores with the colour math the identity;
+# color adds the range normalisation, YUV<->RGB, dither and downsample;
+# full is the production kernel
+PROBE_STAGES = ("io", "color", "full")
+# luma columns of a kernel B work unit (csrc/fused420.cuh): on the vector
+# path, and on the scalar path
+UNIT_COLS, SCALAR_COLS = 8, 2
+_INT32 = 1 << 31
+_MAX_UNITS = _INT32 - (1 << 24)  # the kernel's unit loop stays in int32
 
 _SUB_SHIFTS = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}  # (x, y)
 _DITHER_CODES = {"none": 0, "ordered": 1, "random": 2}
@@ -84,7 +98,7 @@ def render_fused420_reference(y, u, v, lut: Union[LutTable, Coarse2Table],
 
 
 class _Fused420Params(ctypes.Structure):
-    """Mirror of Fused420Params in csrc/fused420.cu."""
+    """Mirror of Fused420Params in csrc/fused420.cuh."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in
@@ -102,7 +116,43 @@ class _Fused420Params(ctypes.Structure):
             "in_cbu", "in_gv", "in_gu",
             "out_kr", "out_kg", "out_kb", "out_crv", "out_cbu", "out_yoff",
             "out_yscale", "out_cmid", "out_cscale")]
+        + [(name, ctypes.c_int) for name in
+           ("units", "units_per_row", "vec")]
     )
+
+
+class Geometry(NamedTuple):
+    """How kernel B covers a frame: ``units`` work units, each of ``cols``
+    luma columns by the output chroma row's height (2 rows for 4:2:0 out,
+    else 1) and the output chroma sites under them; ``units_per_row`` of
+    them side by side per output chroma row; ``vec``: the planes load and
+    store as vectors (else sample by sample)."""
+
+    units: int
+    units_per_row: int
+    vec: bool
+    cols: int
+
+
+def launch_geometry(batch: int, height: int, width: int, out_sy: int,
+                    aligned: bool) -> Geometry:
+    """Kernel B's work units for `batch` frames of height x width with
+    output chroma rows of 1 << out_sy luma rows. Vectors need every row
+    to start on a vector (width a multiple of UNIT_COLS) and planes whose
+    base addresses are 16-byte ``aligned``; otherwise the kernel's scalar
+    path takes the frame in units of SCALAR_COLS columns, the last one cut
+    at an odd width."""
+    if height * width >= _INT32:
+        raise ValueError(f"kernel B takes frames under 2^31 pixels, got "
+                         f"{height}x{width}")
+    vec = aligned and width % UNIT_COLS == 0
+    cols = UNIT_COLS if vec else SCALAR_COLS
+    per_row = -(-width // cols)
+    units = batch * (height >> out_sy) * per_row
+    if units > _MAX_UNITS:
+        raise ValueError(f"kernel B takes at most {_MAX_UNITS} work units "
+                         f"per launch, got {units}")
+    return Geometry(units, per_row, vec, cols)
 
 
 @functools.lru_cache(maxsize=64)
@@ -149,8 +199,10 @@ def bayer_tensor(device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(bayer_offsets(4))).to(device)
 
 
-def _fused420_cuda(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
-    global launches, coarse2_launches
+def launch_args(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
+    """Check the operands of kernel B on a CUDA device and allocate its
+    outputs: (params, (yo, uo, vo), keep). ``keep`` holds every tensor the
+    params point to; it must outlive the launch."""
     dev = y.device
     check_table(lut, dev)
     if y.dtype not in (torch.uint8, torch.uint16):
@@ -187,20 +239,57 @@ def _fused420_cuda(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
                           resid_interp_for(lut, cfg.interp)])
     else:
         tables = dict(table=lut.table.data_ptr())
+    planes = (y, u, v, yo, uo, vo)
+    geom = launch_geometry(B, H, W, k["out_sy"],
+                           all(t.data_ptr() % 16 == 0 for t in planes))
     p = _Fused420Params(
         y=y.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), yo=yo.data_ptr(),
         uo=uo.data_ptr(), vo=vo.data_ptr(), bayer=bayer_ptr, batch=B,
         height=H, width=W, in16=int(y.dtype == torch.uint16),
         out16=int(out_dt == torch.uint16), n=lut.size,
         dmin=(ctypes.c_float * 3)(*lut.domain_min),
-        dmax=(ctypes.c_float * 3)(*lut.domain_max), **tables, **k)
-    if coarse2:
-        _build.launch("fused420_coarse2_launch", p, dev)
+        dmax=(ctypes.c_float * 3)(*lut.domain_max), units=geom.units,
+        units_per_row=geom.units_per_row, vec=int(geom.vec), **tables, **k)
+    return p, (yo, uo, vo), (y, u, v, bayer)
+
+
+def entry_point(lut, stage: str = "full") -> str:
+    """The library entry that launches kernel B at `stage` for `lut`'s
+    table kind."""
+    if stage not in PROBE_STAGES:
+        raise ValueError(f"unknown kernel B stage {stage!r}")
+    if stage != "full":
+        return f"fused420_{stage}_launch"
+    return ("fused420_coarse2_launch" if isinstance(lut, Coarse2Table)
+            else "fused420_launch")
+
+
+def _fused420_cuda(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
+    global launches, coarse2_launches
+    p, out, _keep = launch_args(y, u, v, lut, cfg, bayer)
+    _build.launch(entry_point(lut), p, y.device)
+    if isinstance(lut, Coarse2Table):
         coarse2_launches += 1
     else:
-        _build.launch("fused420_launch", p, dev)
         launches += 1
-    return yo, uo, vo
+    return out
+
+
+def prepared_launch(y, u, v, lut: Union[LutTable, Coarse2Table], cfg,
+                    stage: str = "full"):
+    """(launch, (yo, uo, vo)) on CUDA tensors: each ``launch()`` runs
+    kernel B at `stage` of PROBE_STAGES on operands checked and laid out
+    once, into the same outputs. For the stage probe and for timing the
+    kernel apart from the wrapper's host work; it counts no launch and
+    never runs on a render path."""
+    name = entry_point(lut, stage)
+    p, out, keep = launch_args(y, u, v, lut, cfg, None)
+    keep += out + (lut,)  # the launch holds every tensor p points to
+
+    def launch():
+        _build.launch(name, p, keep[0].device)
+
+    return launch, out
 
 
 def render_fused420(y, u, v, lut: Union[LutTable, Coarse2Table], cfg,

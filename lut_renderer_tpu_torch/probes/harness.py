@@ -1,0 +1,137 @@
+"""Seeded inputs and the CUDA-event timer shared by ``chip_smoke.py`` and
+the kernel probes."""
+
+from __future__ import annotations
+
+import statistics
+
+import numpy as np
+
+from ..colorcore import Lut3D
+
+SEED = 20260
+
+# kernel B's case matrix (chip_smoke phase 3): RenderConfig overrides,
+# (batch, height, width), the LUT's (size, seed offset from SEED), and the
+# planes' seed offset
+KERNEL_B_CASES = {
+    "422p10->422p10": (dict(in_depth=10, out_depth=10, in_subsampling="422",
+                            out_subsampling="422"),
+                       (1, 1080, 1920), (33, 0), 10),
+    "422p10->420p8 ordered": (dict(in_depth=10, in_subsampling="422",
+                                   dither="ordered"),
+                              (1, 1080, 1920), (33, 0), 11),
+    "full-range 420 requantise": (dict(in_full_range=True),
+                                  (1, 1080, 1920), (33, 0), 12),
+    "random dither": (dict(dither="random"), (1, 1080, 1920), (33, 0), 13),
+    "444->444 odd width": (dict(in_subsampling="444", out_subsampling="444",
+                                dither="ordered"),
+                           (1, 360, 641), (33, 0), 14),
+    "1080p 65^3": (dict(), (1, 1080, 1920), (65, 65), 15),
+    "1080p 129^3": (dict(), (1, 1080, 1920), (129, 129), 16),
+}
+
+
+def random_lut(n: int, seed: int) -> Lut3D:
+    """Identity plus a seeded perturbation of +-0.06, clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    lut = Lut3D.identity(n)
+    table = np.clip(lut.table + rng.uniform(-0.06, 0.06, lut.table.shape)
+                    .astype(np.float32), 0, 1).astype(np.float32)
+    return Lut3D(table=table, title=f"smoke{n}")
+
+
+def _chroma_shape(h: int, w: int, in_sub: str):
+    return (h // 2 if in_sub == "420" else h,
+            w // 2 if in_sub in ("420", "422") else w)
+
+
+def yuv_frames(seed: int, b: int, h: int, w: int, depth: int = 8,
+               in_sub: str = "420"):
+    """Seeded frames: smooth ramps that move per frame, plus noise."""
+    rng = np.random.default_rng(seed)
+    hi = (1 << depth) - 1
+    dt = np.uint16 if depth > 8 else np.uint8
+    hc, wc = _chroma_shape(h, w, in_sub)
+
+    def plane(hh, ww, fx, fy, i):
+        ramp = (np.linspace(0, fx, ww, dtype=np.float32)[None, :]
+                + np.linspace(0, fy, hh, dtype=np.float32)[:, None])
+        noise = rng.integers(0, 8, (hh, ww)).astype(np.float32)
+        return np.clip((ramp + 0.03 * i) % 1.0 * hi + noise, 0, hi).astype(dt)
+
+    ys = np.stack([plane(h, w, 0.7, 0.3, i) for i in range(b)])
+    us = np.stack([plane(hc, wc, 0.2, 0.6, i + 5) for i in range(b)])
+    vs = np.stack([plane(hc, wc, 0.5, 0.1, i + 9) for i in range(b)])
+    return ys, us, vs
+
+
+def uniform_frames(seed: int, b: int, h: int, w: int, depth: int = 8,
+                   in_sub: str = "420"):
+    """Seeded frames of uniform-random codes: neighbouring pixels fall in
+    unrelated LUT cells (the worst case for divergence and gathers)."""
+    rng = np.random.default_rng(seed)
+    dt = np.uint16 if depth > 8 else np.uint8
+    hc, wc = _chroma_shape(h, w, in_sub)
+    return tuple(rng.integers(0, 1 << depth, (b,) + shape).astype(dt)
+                 for shape in ((h, w), (hc, wc), (hc, wc)))
+
+
+def tie_frames(seed: int, b: int, h: int, w: int, depth: int = 8,
+               in_sub: str = "420"):
+    """Seeded frames whose LUT deltas tie: grey rows (chroma at mid, so r =
+    g = b) with luma on multiples of 15 << (depth - 8) (on cell boundaries
+    where N - 1 divides 17 under full range) and every fourth luma row
+    random; on odd chroma rows saturated chroma, which clips channels to 0
+    or 1."""
+    rng = np.random.default_rng(seed)
+    dt = np.uint16 if depth > 8 else np.uint8
+    hi, mid = (1 << depth) - 1, 1 << (depth - 1)
+    hc, wc = _chroma_shape(h, w, in_sub)
+    y = (rng.integers(0, 18, (b, h, w)) * (15 << (depth - 8))).astype(dt)
+    y[:, 1::4] = rng.integers(0, hi + 1, y[:, 1::4].shape).astype(dt)
+    u = np.full((b, hc, wc), mid, dt)
+    v = u.copy()
+    u[:, 1::2, 0::3] = 0
+    v[:, 1::2, 1::3] = hi
+    u[:, 1::2, 2::3] = hi
+    return y, u, v
+
+
+def time_ms(fn, iters: int, warmup: int = 2, reps: int = 3,
+            graph: bool = False) -> float:
+    """Milliseconds per call of fn() on the card: CUDA events around
+    `iters` back-to-back calls, the median of `reps` such runs.
+
+    ``graph``: the `iters` calls are captured once into a CUDA graph and
+    the replays are timed, so that the host's launch work (which can
+    exceed a short kernel's time and leave the card idle between
+    launches) stays out of the number. For kernels whose launches are
+    prepared once (ops/fused420.prepared_launch)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    run = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        run, iters_per_run = g.replay, iters
+        g.replay()
+        torch.cuda.synchronize()
+    else:
+        iters_per_run = 1
+    per_call = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters // iters_per_run):
+            run()
+        b.record()
+        b.synchronize()
+        per_call.append(a.elapsed_time(b) / iters)
+    return statistics.median(per_call)

@@ -1,0 +1,245 @@
+"""Kernel B's stage probe, and kernel B against another revision of it.
+
+    python -m lut_renderer_tpu_torch.probes.kernel_b [--baseline DIR]
+                                                     [--out FILE]
+
+Runs on the card only. It ports the JAX package's probes of the fused
+YUV->YUV path (experiments/r5_fused_yuv.py, r3_posty_kernel.py,
+r3_rowphase.py) and of the 33^3 LUT body stage by stage
+(experiments/r6_33cube_floor.py). Kernel B builds in three stages
+(ops/fused420.PROBE_STAGES):
+
+  io     load, convert, quantise and store; the colour math is the identity
+  color  adds the range normalisation, YUV<->RGB, dither and the chroma
+         downsample; the LUT is the identity
+  full   the production kernel
+
+At 4K x 2 420p8 with a 33^3 tetrahedral LUT, on ramp-plus-noise and on
+uniform-random frames, io says what memory and indexing cost, color - io
+the colour math, full - color the LUT.
+
+``--baseline DIR`` names the csrc/ directory of another revision of this
+package, whose fused420.cu holds the strings of BASELINE_PATCHES (the
+kernel with one thread per chroma site), for example
+``git archive <rev> lut_renderer_tpu_torch/csrc`` unpacked there. That
+fused420.cu is built three times with the stage patches, its stages are
+timed beside the current kernel's, and then the two full kernels run in
+turns (baseline, current, current, baseline) on the same planes over
+kernel B's cases (COMPARE_CASES), on ramp, uniform-random and tie-heavy
+frames (harness.tie_frames), with their outputs compared bit for bit. Any
+difference fails the run.
+
+The last line of standard output is one JSON object with every time (ms
+per call, CUDA events) and the card's name and power limit; ``--out``
+writes it to a file as well.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import shutil
+import subprocess
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+import torch
+
+from ..ops import _build, fused420
+from ..ops.prepare import Coarse2Table, LutTable
+from ..ops.render import RenderConfig
+from .harness import (
+    KERNEL_B_CASES,
+    SEED,
+    random_lut,
+    tie_frames,
+    time_ms,
+    uniform_frames,
+    yuv_frames,
+)
+
+STAGES = fused420.PROBE_STAGES
+# the frames every comparison runs on; the stages are timed on the first two
+FRAMES = {"ramp": yuv_frames, "uniform": uniform_frames, "ties": tie_frames}
+STAGE_FRAMES = ("ramp", "uniform")
+
+# (text, replacement) in the baseline's fused420.cu, each found exactly
+# once. PROBE_STAGE (0 io, 1 color, 2 full) is set with -D at the build;
+# at 2 the source is the baseline's own.
+BASELINE_PATCHES = (
+    ('#include "lut_interp.cuh"\n',
+     '#include "lut_interp.cuh"\n\n#ifndef PROBE_STAGE\n'
+     '#define PROBE_STAGE 2\n#endif\n'),
+    ("        if (p.normalize) {  // ops/pixel.range_normalize\n",
+     "        if (PROBE_STAGE == 0) {\n"
+     "          uo[dy][dx] = uf;\n"
+     "          vo[dy][dx] = vf;\n"
+     "          store_px(p.yo, ybase + (long long)row * W + col, p.out16,\n"
+     "                   fminf(fmaxf(floorf(yf + 0.5f), 0.0f), p.maxv_out));\n"
+     "          continue;\n"
+     "        }\n"
+     "        if (p.normalize) {  // ops/pixel.range_normalize\n"),
+    ("        const float4 o = lutk::lut_apply(L, p.interp, r, g, b);\n",
+     "        const float4 o = PROBE_STAGE == 1\n"
+     "                             ? make_float4(r, g, b, 0.0f)\n"
+     "                             : lutk::lut_apply(L, p.interp, r, g, b);\n"),
+    ("    float uc, vc;\n    if constexpr (OSY == 1 && OSX == 1) {\n",
+     "    float uc, vc;\n    if constexpr (PROBE_STAGE == 0) {\n"
+     "      uc = uo[0][0];\n      vc = vo[0][0];\n"
+     "    } else if constexpr (OSY == 1 && OSX == 1) {\n"),
+)
+BASELINE_ENTRY_POINTS = ("fused420_launch", "fused420_coarse2_launch")
+
+# beside KERNEL_B_CASES, the cases chip_smoke's phase 3 builds itself:
+# RenderConfig overrides, (batch, height, width), (LUT size, seed offset),
+# planes' seed offset, coarse2 tier or None
+COMPARE_CASES = {
+    "4K 420p8 33^3": (dict(), (2, 2160, 3840), (33, 0), 1, None),
+    "4K 420p8 65^3 coarse2f": (dict(lut_precision="coarse2f"),
+                               (2, 2160, 3840), (65, 265), 1, "coarse2f"),
+    "4K 420p8 129^3 coarse2f": (dict(lut_precision="coarse2f"),
+                                (2, 2160, 3840), (129, 329), 1, "coarse2f"),
+    "422p10 129^3 coarse2x random dither": (
+        dict(lut_precision="coarse2f", in_depth=10, out_depth=10,
+             in_subsampling="422", out_subsampling="422", dither="random"),
+        (1, 1080, 1920), (129, 329), 30, "coarse2x"),
+    **{name: (kw, shape, lut, seed, None)
+       for name, (kw, shape, lut, seed) in KERNEL_B_CASES.items()},
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_baseline(csrc: Path) -> dict:
+    """{stage: library} of the baseline's kernel B, one build per stage,
+    all started at once."""
+    src = (csrc / "fused420.cu").read_text()
+    for old, new in BASELINE_PATCHES:
+        if src.count(old) != 1:
+            raise ValueError(f"{csrc}/fused420.cu: expected one {old!r}")
+        src = src.replace(old, new)
+    header = (csrc / "lut_interp.cuh").read_bytes()
+    tag = hashlib.sha256(src.encode() + header).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"baseline_{tag}"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "fused420.cu").write_text(src)
+    (out / "lut_interp.cuh").write_bytes(header)
+    libs = {stage: out / f"libkernel_b_{stage}.so" for stage in STAGES}
+    nvcc = _build.nvcc_path()
+    _build.run_all([[nvcc, *_build.NVCC_FLAGS, f"-DPROBE_STAGE={i}",
+                     "-shared", "-o", str(lib), str(out / "fused420.cu")]
+                    for i, lib in enumerate(libs.values())])
+    return {stage: _build.open_library(path, BASELINE_ENTRY_POINTS)
+            for stage, path in libs.items()}
+
+
+def baseline_launch(lib, y, u, v, table, cfg):
+    """(launch, (yo, uo, vo)): ``launch()`` runs the baseline library's
+    kernel B on operands the current wrapper checks and lays out once."""
+    p, out, keep = fused420.launch_args(y, u, v, table, cfg, None)
+    keep += out + (table,)  # the launch holds every tensor p points to
+    name = fused420.entry_point(table)
+
+    def launch():
+        _build.launch(name, p, keep[0].device, lib=lib)
+
+    return launch, out
+
+
+def case_inputs(name: str, frames: str, dev):
+    """(cfg, device planes, table) of COMPARE_CASES[name]."""
+    kw, (b, h, w), (n, lut_seed), seed, tier = COMPARE_CASES[name]
+    cfg = replace(RenderConfig(), **kw)
+    table = LutTable.from_lut3d(random_lut(n, SEED + lut_seed), dev)
+    if tier is not None:
+        table = Coarse2Table.from_lut_table(table, tier)
+    planes = FRAMES[frames](SEED + seed, b, h, w, cfg.in_depth,
+                            cfg.in_subsampling)
+    return cfg, [torch.from_numpy(p).to(dev) for p in planes], table
+
+
+def stage_times(dev, baseline=None) -> dict:
+    """{kernel: {frames: {stage: ms}}} at 4K x 2 420p8, 33^3 tetrahedral:
+    the current kernel, and the baseline's when its libraries are given."""
+    out = {}
+    for frames in STAGE_FRAMES:
+        cfg, planes, table = case_inputs("4K 420p8 33^3", frames, dev)
+        runs = {"current": {s: fused420.prepared_launch(*planes, table, cfg,
+                                                        s)[0]
+                            for s in STAGES}}
+        if baseline is not None:
+            runs["baseline"] = {s: baseline_launch(baseline[s], *planes,
+                                                   table, cfg)[0]
+                                for s in STAGES}
+        for kernel, fns in runs.items():
+            out.setdefault(kernel, {})[frames] = {
+                s: time_ms(fn, 20, graph=True) for s, fn in fns.items()}
+    return out
+
+
+def compare(dev, baseline) -> dict:
+    """{case: {frames: {baseline_ms, current_ms}}}: the two full kernels in
+    turns on the same planes; raises unless their outputs are bit-equal."""
+    out = {}
+    for name in COMPARE_CASES:
+        for frames in FRAMES:
+            cfg, planes, table = case_inputs(name, frames, dev)
+            old, want = baseline_launch(baseline["full"], *planes, table, cfg)
+            new, got = fused420.prepared_launch(*planes, table, cfg)
+            old()
+            new()
+            torch.cuda.synchronize()
+            for a, e, plane in zip(got, want, "yuv"):
+                if not torch.equal(a, e):
+                    d = (a.int() - e.int()).abs()
+                    raise AssertionError(
+                        f"{name} {frames}: plane {plane} differs from the "
+                        f"baseline, max|d|={int(d.max())} on "
+                        f"{int((d > 0).sum())} samples")
+            t = [time_ms(f, 20, graph=True) for f in (old, new, new, old)]
+            out.setdefault(name, {})[frames] = dict(
+                baseline_ms=(t[0] + t[3]) / 2, current_ms=(t[1] + t[2]) / 2,
+                max_abs_diff=0)
+            print(json.dumps({name: {frames: out[name][frames]}}),
+                  flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", type=Path,
+                    help="csrc/ directory of the kernel B to compare with")
+    ap.add_argument("--out", type=Path, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_b probe: no CUDA device; it runs on the card only",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    report = {"card": card_line(), "device": torch.cuda.get_device_name(0)}
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    _build.load_library()
+    report["build_s"] = _build.build_seconds
+    baseline = build_baseline(args.baseline) if args.baseline else None
+    report["stages_ms"] = stage_times(dev, baseline)
+    print(json.dumps({"stages_ms": report["stages_ms"]}), flush=True)
+    if baseline is not None:
+        report["compare_ms"] = compare(dev, baseline)
+    line = json.dumps(report)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

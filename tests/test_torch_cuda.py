@@ -21,6 +21,7 @@ from lut_renderer_tpu_torch.engine.executor import render_batches
 from lut_renderer_tpu_torch.ops import fused420, lut3d
 from lut_renderer_tpu_torch.ops.prepare import Coarse2Table, LutTable
 from lut_renderer_tpu_torch.ops.render import RenderConfig, make_render_fn
+from lut_renderer_tpu_torch.probes.harness import tie_frames
 
 from torch_parity import (  # noqa: F401
     CASES,
@@ -163,3 +164,119 @@ def test_render_batches_on_card(cuda_device, layout, module, counter, n,
         assert g[3] == w[3]
         assert_integer_contract(g[:3], w[:3], layout)
         assert all(isinstance(a, np.ndarray) for a in g[:3])
+
+
+_GEOMETRIES = {"420": dict(), "422": dict(out_subsampling="422"),
+               "444": dict(in_subsampling="444", out_subsampling="444")}
+
+
+def _kernel_b_vs_plain(cfg, yuv, lut, what, device):
+    dev = to_torch(*yuv, device=device)
+    counter = "coarse2_launches" if isinstance(lut, Coarse2Table) \
+        else "launches"
+    before = getattr(fused420, counter)
+    got = fused420.render_fused420(*dev, lut, cfg)
+    torch.cuda.synchronize()
+    assert getattr(fused420, counter) == before + 1
+    want = fused420.render_fused420_reference(*dev, lut, cfg)
+    assert_integer_contract(got, want, what)
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
+def test_kernel_b_each_instantiation(cuda_device, interp, geometry):
+    """Every (interp, output geometry) instantiation of kernel B."""
+    cfg = RenderConfig(interp=interp, dither="ordered",
+                       **_GEOMETRIES[geometry])
+    lut = LutTable.from_lut3d(random_lut(17, seed=4, domain=DOMAIN),
+                              cuda_device)
+    yuv = planes(12, 2, 16, 256, 8, cfg.in_subsampling)
+    _kernel_b_vs_plain(cfg, yuv, lut, f"{interp} {geometry}", cuda_device)
+
+
+@pytest.mark.parametrize("geometry,width", [("420", 1922), ("422", 1926),
+                                            ("444", 641), ("444", 1925),
+                                            ("420", 6)])
+@pytest.mark.parametrize("depth", [8, 10])
+def test_kernel_b_scalar_tail(cuda_device, geometry, width, depth):
+    """Widths that are not a multiple of 8 take the scalar path."""
+    cfg = RenderConfig(in_depth=depth, out_depth=depth, dither="random",
+                       **_GEOMETRIES[geometry])
+    lut = LutTable.from_lut3d(random_lut(17, seed=5), cuda_device)
+    yuv = planes(13, 1, 8, width, depth, cfg.in_subsampling)
+    _kernel_b_vs_plain(cfg, yuv, lut, f"{geometry} width {width}",
+                       cuda_device)
+
+
+def test_kernel_b_unaligned_planes_take_the_scalar_path(cuda_device):
+    cfg = RenderConfig()
+    lut = LutTable.from_lut3d(random_lut(17, seed=6), cuda_device)
+    y, u, v = to_torch(*planes(14, 3, 16, 256, 8), device=cuda_device)
+    # frames 1-2 of a batch of 3 start at an odd byte offset of the storage
+    flat = [torch.cat([t.new_zeros(1), t.flatten()])[1:] for t in (y, u, v)]
+    views = [f[t[0].numel():].view(2, *t.shape[1:]) for f, t in
+             zip(flat, (y, u, v))]
+    assert views[0].data_ptr() % 16
+    got = fused420.render_fused420(*views, lut, cfg)
+    want = fused420.render_fused420_reference(*views, lut, cfg)
+    assert_integer_contract(got, want, "unaligned")
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_kernel_b_tie_heavy_planes(cuda_device, interp):
+    """Deltas that tie and land on cell boundaries of an 18^3 LUT (N - 1
+    = 17 divides 255 under full range): held against the plain version on
+    the CPU, which divides exactly as the kernel does. (The plain version
+    on the card divides through a reciprocal; on planes of so few distinct
+    codes one code that rounds the other way covers a large share of the
+    pixels.)"""
+    cfg = RenderConfig(in_full_range=True, work_full_range=True,
+                       out_full_range=True, interp=interp)
+    lut = LutTable.from_lut3d(random_lut(18, seed=7), cuda_device)
+    yuv = tie_frames(21, 2, 16, 192)
+    got = fused420.render_fused420(*to_torch(*yuv, device=cuda_device), lut,
+                                   cfg)
+    want = fused420.render_fused420(*to_torch(*yuv), lut.to("cpu"), cfg)
+    assert_integer_contract(got, want, f"ties {interp}")
+
+
+@pytest.mark.parametrize("table", ["exact", "coarse2f"])
+def test_kernel_b_uniform_random_planes(cuda_device, table):
+    """Uniform-random 8-bit codes: neighbouring pixels in unrelated cells."""
+    cfg = RenderConfig(lut_precision=table)
+    lut = LutTable.from_lut3d(random_lut(65, seed=9), cuda_device)
+    if table != "exact":
+        lut = Coarse2Table.from_lut_table(lut, table)
+    rng = np.random.default_rng(22)
+    yuv = tuple(rng.integers(0, 256, s, dtype=np.uint8)
+                for s in ((2, 64, 512), (2, 32, 256), (2, 32, 256)))
+    _kernel_b_vs_plain(cfg, yuv, lut, f"uniform {table}", cuda_device)
+
+
+def test_kernel_b_coarse2_422p10_random_dither(cuda_device):
+    cfg = RenderConfig(in_depth=10, out_depth=10, in_subsampling="422",
+                       out_subsampling="422", dither="random",
+                       lut_precision="coarse2f")
+    lut = _coarse2(65, "coarse2f", cuda_device, seed=10)
+    yuv = planes(15, 2, 16, 264, 10, "422")
+    _kernel_b_vs_plain(cfg, yuv, lut, "coarse2 422p10 random", cuda_device)
+
+
+@pytest.mark.parametrize("stage", ["io", "color", "full"])
+def test_kernel_b_probe_stages_launch(cuda_device, stage):
+    """The stage probe's builds run and count no launch; full equals the
+    production kernel bit for bit."""
+    cfg = RenderConfig()
+    lut = LutTable.from_lut3d(random_lut(17, seed=11), cuda_device)
+    yuv = to_torch(*planes(16, 2, 16, 256, 8), device=cuda_device)
+    before = fused420.launches
+    launch, got = fused420.prepared_launch(*yuv, lut, cfg, stage)
+    launch()
+    torch.cuda.synchronize()
+    assert fused420.launches == before
+    if stage == "full":
+        want = fused420.render_fused420(*yuv, lut, cfg)
+        for a, e in zip(got, want):
+            assert torch.equal(a, e)
+    elif stage == "io":  # the identity colour math: y out is y in
+        assert torch.equal(got[0], yuv[0])
