@@ -10,13 +10,22 @@ and, where hostio's FFmpeg libraries load, renders a clip file to file
 through the port's CLI. Phases:
 
   1. card and build      nvidia-smi name/power limit, versions, build time
-  2. kernel A            LUT on planar RGB vs plain: 4K x 5 interps at 33^3,
-                         1080p at 65^3 and 129^3; <= 1e-5 absolute; the
+  2. kernel A            LUT on planar RGB vs plain: 4K x 2 x 5 interps at
+                         33^3 (uniform planes), ramp planes (the plain
+                         layout's RGB of the paths' frames), the scalar
+                         path (planes one element off), 1080p at 65^3 and
+                         129^3; <= 1e-5 absolute; times of launches
+                         prepared once on both kinds of planes, the
                          trilinear case beside torch's grid_sample
   2C. kernel C           coarse + residual LUT vs plain: 4K x 2 at 65^3,
                          97^3, 129^3 x coarse2f/coarse2/coarse2x, 5 interps
-                         at 129^3, coarse2f_tri; <= 1e-5 absolute; times
-                         beside kernel A's exact table at each N
+                         at 129^3 coarse2f and coarse2f_tri (every
+                         instantiation), ramp planes; <= 1e-5 absolute;
+                         times on both kinds of planes beside kernel A's
+                         exact table at each N; the 129^3 table build
+  2P. stage probe        kernels A (33^3) and C (129^3 coarse2f) built in
+                         stages (probes/kernel_ac.py) at 4K x 2, timed on
+                         both kinds of planes
   3. kernel B            whole-frame YUV->YUV vs plain: 4K 420p8 (ramp and
                          uniform-random frames) and the geometry/depth/
                          range/dither matrix, exact and coarse2f tables;
@@ -37,7 +46,8 @@ own report that this machine has no FFmpeg libraries (no cv2, or
 FFIUnavailable), which skips phase 5 and says why. Without a CUDA device it
 exits non-zero before printing any result. The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernels' JSON
-(each kernel's time, plain time, least possible time and launches on its
+(each kernel's time on the paths' planes and on uniform ones, its stages,
+plain time, least possible time and its share of it, launches on its
 path) and the one before that the card's name and power limit.
 """
 
@@ -46,7 +56,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -81,14 +90,6 @@ FLOPS_PER_PX = {"A": 60, "C": 160, "B": 103, "B coarse2": 203}
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound(nbytes: float, flops: float):
@@ -141,13 +142,16 @@ def main() -> int:
     from lut_renderer_tpu_torch.ops.prepare import Coarse2Table, LutTable
     from lut_renderer_tpu_torch.ops.pixel import render_planes
     from lut_renderer_tpu_torch.ops.render import RenderConfig, make_render_fn
-    from lut_renderer_tpu_torch.probes import kernel_b
+    from lut_renderer_tpu_torch.probes import kernel_ac, kernel_b
     from lut_renderer_tpu_torch.probes.harness import (
         KERNEL_B_CASES,
         SEED,
+        card_line,
+        plain_rgb,
         random_lut,
         time_ms,
         uniform_frames,
+        uniform_rgb,
         yuv_frames,
     )
 
@@ -165,109 +169,149 @@ def main() -> int:
     report = {}
 
     # ---- 2. kernel A vs its plain version ---------------------------------
-    def lut_check(n, h, w, interps, seed):
-        table = LutTable.from_lut3d(random_lut(n, seed), dev)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        rgb = [torch.rand((h, w), generator=g, device=dev) * 1.1 - 0.05
-               for _ in range(3)]
+    main_cfg = RenderConfig()
+    # the main path's batch: 2 frames of 3840x2160 (executor batch rule);
+    # planes of two kinds: ramp, the RGB that the plain layout hands the
+    # LUT for the paths' frames, and uniform (every cell equally likely,
+    # neighbours in unrelated cells)
+    bsz = _pick_batch_size(3840, 2160)
+    rgb_r = plain_rgb(yuv_frames(SEED + 1, bsz, 2160, 3840), main_cfg, dev)
+    rgb_u = uniform_rgb(SEED, (bsz, 2160, 3840), dev)
+
+    def lut_check(table, rgb, interps, what):
+        plain = (lut3d.apply_lut_planes_coarse2_reference
+                 if isinstance(table, Coarse2Table)
+                 else lut3d.apply_lut_planes_reference)
         worst = 0.0
         for interp in interps:
             got = lut3d.apply_lut_planes(*rgb, table, interp)
-            want = lut3d.apply_lut_planes_reference(*rgb, table, interp)
+            want = plain(*rgb, table, interp)
             torch.cuda.synchronize()
             err = max(float((a - e).abs().max()) for a, e in zip(got, want))
             if not err <= LUT_ATOL:
-                fail(f"kernel A {n}^3 {interp} {w}x{h}: max|d|={err}")
+                fail(f"{what} {interp}: max|d|={err}")
             worst = max(worst, err)
-        return table, rgb, worst
+        return worst
 
-    # the main path's batch: 2 frames of 3840x2160 (executor batch rule)
-    bsz = _pick_batch_size(3840, 2160)
-    table33, rgb4k, err_a = lut_check(33, 2160, 3840, INTERPS, SEED)
+    table33 = LutTable.from_lut3d(random_lut(33, SEED), dev)
+    err_a = lut_check(table33, rgb_u, INTERPS, "kernel A 4K 33^3 uniform")
+    err_a = max(err_a, lut_check(table33, rgb_r, (TETRA,),
+                                 "kernel A 4K 33^3 ramp"))
+    # one element off: the planes are not 16-byte aligned (the scalar path)
+    # and the pixel count is not a multiple of 4
+    odd = [t.reshape(-1)[1:] for t in rgb_u]
+    err_a = max(err_a, lut_check(table33, odd, (TETRA,),
+                                 "kernel A 4K 33^3 scalar path"))
     for n in (65, 129):
-        _, _, e = lut_check(n, 1080, 1920, (TETRA,), SEED + n)
-        err_a = max(err_a, e)
-    rgb_b = [torch.stack([c] * bsz) for c in rgb4k]  # (bsz, 2160, 3840)
-    a_ms = time_ms(lambda: lut3d.apply_lut_planes(*rgb_b, table33, TETRA), 20)
+        table = LutTable.from_lut3d(random_lut(n, SEED + n), dev)
+        err_a = max(err_a, lut_check(table, [t[0, :1080, :1920] for t in rgb_u],
+                                     (TETRA,), f"kernel A 1080p {n}^3"))
+    # times of launches prepared once, replayed from a CUDA graph
+    a_ms = time_ms(lut3d.prepared_launch(*rgb_r, table33, TETRA)[0], 20,
+                   graph=True)
+    a_uniform = time_ms(lut3d.prepared_launch(*rgb_u, table33, TETRA)[0], 20,
+                        graph=True)
     a_plain = time_ms(
-        lambda: lut3d.apply_lut_planes_reference(*rgb_b, table33, TETRA), 3)
+        lambda: lut3d.apply_lut_planes_reference(*rgb_r, table33, TETRA), 3)
     # the library yardstick of the trilinear case: grid_sample on the
     # (1, 3, N, N, N) table, grid (x, y, z) = (b, g, r) in [-1, 1]
     tab_t = table33.table[..., :3].permute(3, 0, 1, 2)[None].contiguous()
     grid = torch.stack([c.clamp(0, 1).reshape(-1) * 2 - 1
-                        for c in reversed(rgb_b)], -1).view(1, 1, 1, -1, 3)
+                        for c in reversed(rgb_u)], -1).view(1, 1, 1, -1, 3)
 
     def library():
         return torch.nn.functional.grid_sample(
             tab_t, grid, mode="bilinear", padding_mode="border",
             align_corners=True)
 
-    tri = lut3d.apply_lut_planes(*rgb_b, table33, "trilinear")
-    lib_err = float((library()[0, :, 0, 0].reshape(3, *rgb_b[0].shape)
+    tri_launch, tri = lut3d.prepared_launch(*rgb_u, table33, "trilinear")
+    tri_launch()
+    lib_err = float((library()[0, :, 0, 0].reshape(3, *rgb_u[0].shape)
                      - torch.stack(tri)).abs().max())
-    a_tri = time_ms(lambda: lut3d.apply_lut_planes(*rgb_b, table33,
-                                                   "trilinear"), 20)
+    a_tri = time_ms(tri_launch, 20, graph=True)
     lib_ms = time_ms(library, 20)
-    print(f"phase 2 kernel A: 5 interps at 4K 33^3 + 1080p 65^3/129^3 "
-          f"tetrahedral, max|d|={err_a:.3g} (<= {LUT_ATOL}); "
-          f"{bsz}x3840x2160 tetrahedral: kernel {a_ms:.3f} ms, "
-          f"plain {a_plain:.3f} ms; trilinear: kernel {a_tri:.3f} ms, "
-          f"torch grid_sample {lib_ms:.3f} ms (max|d| {lib_err:.3g} vs "
-          f"kernel)", flush=True)
-    report["A"] = dict(err=err_a, ms=a_ms, plain_ms=a_plain, library_ms=lib_ms,
+    print(f"phase 2 kernel A: 5 interps at 4K 33^3 (uniform planes), ramp "
+          f"planes, the scalar path, 1080p 65^3/129^3 tetrahedral, "
+          f"max|d|={err_a:.3g} (<= {LUT_ATOL}); {bsz}x3840x2160 "
+          f"tetrahedral: kernel {a_ms:.4f} ms on ramp planes, {a_uniform:.4f} "
+          f"ms on uniform ones, plain {a_plain:.3f} ms; trilinear (uniform): "
+          f"kernel {a_tri:.4f} ms, torch grid_sample {lib_ms:.3f} ms (max|d| "
+          f"{lib_err:.3g} vs kernel)", flush=True)
+    report["A"] = dict(err=err_a, ms=a_ms, uniform_ms=a_uniform,
+                       plain_ms=a_plain, library_ms=lib_ms,
                        trilinear_ms=a_tri, library_err=lib_err,
                        table=table_bytes(table33))
-    del tri, grid, tab_t
+    del tri, grid, tab_t, tri_launch, odd
 
     # ---- 2C. kernel C vs its plain version --------------------------------
-    def coarse2_check(n, tier, interps, seed, rgb):
-        exact = LutTable.from_lut3d(random_lut(n, seed), dev)
-        table = Coarse2Table.from_lut_table(exact, tier)
-        worst = 0.0
-        for interp in interps:
-            got = lut3d.apply_lut_planes(*rgb, table, interp)
-            want = lut3d.apply_lut_planes_coarse2_reference(*rgb, table,
-                                                            interp)
-            torch.cuda.synchronize()
-            err = max(float((a - e).abs().max()) for a, e in zip(got, want))
-            if not err <= LUT_ATOL:
-                fail(f"kernel C {n}^3 {tier} {interp}: max|d|={err}")
-            worst = max(worst, err)
-        return exact, table, worst
-
     err_c, c_times = 0.0, {}
     for n in (65, 97, 129):
+        exact = LutTable.from_lut3d(random_lut(n, SEED + n), dev)
         for tier in COARSE2:
+            table = Coarse2Table.from_lut_table(exact, tier)
             interps = INTERPS if (n, tier) == (129, BIG) else (TETRA,)
-            exact, table, e = coarse2_check(n, tier, interps, SEED + n, rgb_b)
-            err_c = max(err_c, e)
+            err_c = max(err_c, lut_check(table, rgb_u, interps,
+                                         f"kernel C {n}^3 {tier}"))
             if tier != BIG:
                 continue
-            # kernel A on the exact table and kernel C on the same inputs,
+            err_c = max(err_c, lut_check(table, rgb_r, (TETRA,),
+                                         f"kernel C {n}^3 {tier} ramp"))
+            # kernel A on the exact table and kernel C on the same planes,
             # in turns (A, C, C, A)
-            run_a = lambda: lut3d.apply_lut_planes(*rgb_b, exact, TETRA)  # noqa: E731
-            run_c = lambda: lut3d.apply_lut_planes(*rgb_b, table, TETRA)  # noqa: E731
-            t = [time_ms(f, 20) for f in (run_a, run_c, run_c, run_a)]
-            c_times[n] = dict(A_ms=(t[0] + t[3]) / 2, C_ms=(t[1] + t[2]) / 2,
-                              A_table=table_bytes(exact),
+            c_times[n] = dict(A_table=table_bytes(exact),
                               C_table=table_bytes(table))
-    _, table_tri, e = coarse2_check(129, "coarse2f_tri", (TETRA,), SEED + 129,
-                                    rgb_b)
-    err_c = max(err_c, e)
-    big_c = Coarse2Table.from_lut_table(
-        LutTable.from_lut3d(random_lut(129, SEED + 129), dev), BIG)
+            for kind, rgb in (("ramp", rgb_r), ("uniform", rgb_u)):
+                run_a = lut3d.prepared_launch(*rgb, exact, TETRA)[0]
+                run_c = lut3d.prepared_launch(*rgb, table, TETRA)[0]
+                t = [time_ms(f, 20, graph=True)
+                     for f in (run_a, run_c, run_c, run_a)]
+                c_times[n][kind] = dict(A_ms=(t[0] + t[3]) / 2,
+                                        C_ms=(t[1] + t[2]) / 2)
+    # every (interp, residual interp) instantiation: the _tri tier under
+    # each interp
+    # the LUT table build at 129^3 on the device (ops/prepare, warm): the
+    # exact table from a parsed LUT, then its coarse + residual tables
+    lut129 = random_lut(129, SEED + 129)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big_exact = LutTable.from_lut3d(lut129, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    big_c = Coarse2Table.from_lut_table(big_exact, BIG)
+    torch.cuda.synchronize()
+    build_ms = {"exact 129^3": (t1 - t0) * 1e3,
+                f"{BIG} 129^3": (time.perf_counter() - t1) * 1e3}
+    err_c = max(err_c, lut_check(
+        Coarse2Table.from_lut_table(big_exact, "coarse2f_tri"), rgb_u,
+        INTERPS, "kernel C 129^3 coarse2f_tri"))
     c_plain = time_ms(lambda: lut3d.apply_lut_planes_coarse2_reference(
-        *rgb_b, big_c, TETRA), 2, warmup=1)
+        *rgb_r, big_c, TETRA), 2, warmup=1)
     print(f"phase 2C kernel C: 4K x {bsz} at 65^3/97^3/129^3 x "
-          f"{'/'.join(COARSE2)} tetrahedral, 5 interps at 129^3 {BIG}, "
-          f"coarse2f_tri; max|d|={err_c:.3g} (<= {LUT_ATOL}); "
-          f"{bsz}x3840x2160 tetrahedral {BIG}: " + ", ".join(
-              f"{n}^3 kernel C {v['C_ms']:.3f} ms vs kernel A exact "
-              f"{v['A_ms']:.3f} ms" for n, v in c_times.items())
-          + f"; plain at 129^3 {c_plain:.3f} ms", flush=True)
-    report["C"] = dict(err=err_c, ms=c_times[129]["C_ms"], plain_ms=c_plain,
-                       table=c_times[129]["C_table"])
-    del table_tri, big_c
+          f"{'/'.join(COARSE2)} tetrahedral, 5 interps at 129^3 {BIG} and "
+          f"coarse2f_tri, ramp planes; max|d|={err_c:.3g} (<= {LUT_ATOL}); "
+          f"{bsz}x3840x2160 tetrahedral {BIG}, ramp / uniform planes: "
+          + ", ".join(
+              f"{n}^3 kernel C {v['ramp']['C_ms']:.4f} / "
+              f"{v['uniform']['C_ms']:.4f} ms vs kernel A exact "
+              f"{v['ramp']['A_ms']:.4f} / {v['uniform']['A_ms']:.4f} ms"
+              for n, v in c_times.items())
+          + f"; plain at 129^3 {c_plain:.3f} ms; table build "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in build_ms.items()),
+          flush=True)
+    report["C"] = dict(err=err_c, ms=c_times[129]["ramp"]["C_ms"],
+                       uniform_ms=c_times[129]["uniform"]["C_ms"],
+                       plain_ms=c_plain, table=c_times[129]["C_table"])
+    del big_c, big_exact, exact, table
+
+    # ---- 2P. the stage probe of kernels A and C -----------------------------
+    ac_stages = kernel_ac.stage_times(dev, ("A 33^3", "C 129^3 coarse2f"))
+    print("phase 2P kernels A and C stages, 4K x 2 tetrahedral (io: "
+          "load/store; weights: + domain map, cells, sums; coarse / resid: "
+          "one term of C with its loads; full: production): " + "; ".join(
+              f"{case} {kind} " + ", ".join(
+                  f"{s} {ms:.4f} ms" for s, ms in t.items())
+              for case, kinds in ac_stages.items()
+              for kind, t in kinds.items()), flush=True)
 
     # ---- 3. kernel B vs its plain version ---------------------------------
     lut33 = random_lut(33, SEED)
@@ -284,7 +328,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return code_diff(got, want, f"kernel B {what}"), planes, table
 
-    main_cfg = RenderConfig()
     worst_b, planes4k, tab = fused_check(main_cfg, bsz, 2160, 3840, lut33,
                                          SEED + 1, "4K 420p8")
     cases = KERNEL_B_CASES
@@ -371,7 +414,7 @@ def main() -> int:
               f"{v['B_ms']:.3f} ms" for n, v in b2_times.items())
           + f"; 129^3 coarse2 on uniform-random frames {b2_uniform:.3f} ms; "
           f"plain at 129^3 {b2_plain:.3f} ms", flush=True)
-    del planes4k, rgb4k, rgb_b, planes
+    del planes4k, rgb_r, rgb_u, planes
 
     # ---- 3P. kernel B's stage probe -------------------------------------
     stages = kernel_b.stage_times(dev)["current"]
@@ -630,19 +673,22 @@ def main() -> int:
             "replaces": replaces, "launches": n_launch,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": r.get("library_ms")})
-    kernels[0].update(library_case="trilinear, torch grid_sample",
-                      trilinear_ms=report["A"]["trilinear_ms"])
-    for entry, key in zip(kernels[1:3], ("B", "B coarse2")):
-        entry["uniform_frames_ms"] = report[key]["uniform_ms"]
+            "library_ms": r.get("library_ms"),
+            "uniform_ms": r["uniform_ms"], "share": bound_ms / r["ms"]})
+    kernels[0].update(library_case="trilinear, uniform planes, torch "
+                                   "grid_sample",
+                      trilinear_ms=report["A"]["trilinear_ms"],
+                      stages_ms=ac_stages["A 33^3"])
     kernels[1]["stages_ms"] = stages
+    kernels[3]["stages_ms"] = ac_stages["C 129^3 coarse2f"]
     print(json.dumps({"main_path_fps": fps, "cold_pass_fps": cold_fps,
                       "frames": n_frames,
                       "batch": bsz, "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,
                       "big_cube_fps": big_fps, "big_cube_cold_fps": big_cold,
                       "big_cube_frames": n_big,
                       "kernel_c_vs_a_ms": c_times,
-                      "kernel_b_coarse2_vs_exact_ms": b2_times}))
+                      "kernel_b_coarse2_vs_exact_ms": b2_times,
+                      "table_build_ms": build_ms}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,80 +5,51 @@
 // pallas_call over _fused_kernel_coarse2, lut3d.py:771 / :842). There the
 // interpolation of L = U(C) + R runs as two one-hot MXU contractions: the
 // fine int8 residual, and the coarse table under the fine taps remapped
-// onto the (N+1)/2 grid. Here one thread per pixel, as in kernel A:
+// onto the (N+1)/2 grid. Here, for each pixel:
 //
-//   residual  the interp's corners of the (N, N, N, 4) int8 table (one
-//             4-byte char4 load each) times the scale of the corner's
-//             r index and channel (one float4 load for each of the cell's
-//             two r lines), in the order of interp_cell;
+//   residual  the residual interp's corners of the int8 table times the
+//             scale of the corner's r index and channel (in shared
+//             memory), in the order of interp_cell;
 //   coarse    the interp's 8 fine-corner weights folded through the
-//             per-axis 2x2 remap onto one 8-corner coarse cell (the coarse
-//             cell index p / 2 is the same for every pass of an interp),
-//             then 8 float4 loads from the (M, M, M, 4) f32 table summed
-//             in a fixed order. The top-edge coarse line M is clamped to
-//             M - 1 (lut_interp.cuh, coarse_term).
+//             per-axis 2x2 remap onto one 8-corner coarse cell, then its
+//             8 f32 corners summed in a fixed order. The top-edge coarse
+//             line M is clamped to M - 1 (lut_interp.cuh, coarse_term).
 //
-// Bound on Hopper: L2 gathers, 8 coarse + 4-8 residual corner loads per
-// pixel, plus 24 B/px of device-memory traffic (3 f32 planes in, 3 out).
-// The tables are smaller than kernel A's f32 table at the same N: 1.7 MB
-// (0.57 MB coarse + 1.10 MB residual) against 4.4 MB at 65^3, 5.5 MB
-// against 14.6 MB at 97^3, 13.0 MB against 34.4 MB at 129^3, so they sit in
-// the 50 MB L2 with room to spare; the cost is more loads per pixel.
-#include <cuda_runtime.h>
-
-#include "lut_interp.cuh"
-
-// Outside the anonymous namespace: a parameter type with internal linkage
-// would give the extern "C" entry point internal linkage too.
-struct Coarse2Params {
-  const float* r;
-  const float* g;
-  const float* b;
-  float* ro;
-  float* go;
-  float* bo;
-  const float4* coarse;  // (m, m, m, 4) f32
-  const char4* resid;    // (n, n, n, 4) int8
-  const float4* rscale;  // (n, 4) f32
-  long long npix;
-  int n;
-  int m;
-  int interp;
-  int resid_interp;
-  float dmin[3];
-  float dmax[3];
-};
+// Bound on Hopper: scattered table loads, the coarse cell's 8 float4
+// corners and 1-8 int8 residual corners a pixel, beside 24 B/px of
+// device-memory traffic (3 f32 planes in, 3 out). The tables, 13 MB at
+// 129^3, sit in the 50 MB L2. The kernel is
+// planar_lut.cuh's skeleton; this file picks one instantiation per
+// (interp, residual interp) pair: the render's own, or trilinear under a
+// _tri tier.
+#include "planar_lut.cuh"
 
 namespace {
 
-__global__ void coarse2_kernel(Coarse2Params p) {
-  lutk::Coarse2Args C;
-  C.coarse = p.coarse;
-  C.resid = p.resid;
-  C.rscale = p.rscale;
-  C.n = p.n;
-  C.m = p.m;
-  C.resid_interp = p.resid_interp;
-  lutk::set_domain(C, p.dmin, p.dmax);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < p.npix; i += stride) {
-    float4 o = lutk::lut_apply(C, p.interp, __ldg(p.r + i), __ldg(p.g + i),
-                               __ldg(p.b + i));
-    p.ro[i] = o.x;
-    p.go[i] = o.y;
-    p.bo[i] = o.z;
-  }
+template <int INTERP, int RESID>
+int run(const Coarse2Params* p, void* stream) {
+  return launch<Coarse2Params, INTERP, RESID, kFull>(p, stream);
 }
 
 }  // namespace
 
 extern "C" __attribute__((visibility("default"))) int coarse2_launch(
     const Coarse2Params* p, void* stream) {
-  if (p->npix <= 0) return 0;
-  const int block = 256;
-  long long blocks = (p->npix + block - 1) / block;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond this
-  coarse2_kernel<<<(unsigned)blocks, block, 0, (cudaStream_t)stream>>>(*p);
-  return (int)cudaGetLastError();
+  const bool tri = p->resid_interp == lutk::kTrilinear;
+  switch (p->interp) {
+    case lutk::kNearest:
+      return tri ? run<lutk::kNearest, lutk::kTrilinear>(p, stream)
+                 : run<lutk::kNearest, lutk::kNearest>(p, stream);
+    case lutk::kTrilinear:
+      return run<lutk::kTrilinear, lutk::kTrilinear>(p, stream);
+    case lutk::kPyramid:
+      return tri ? run<lutk::kPyramid, lutk::kTrilinear>(p, stream)
+                 : run<lutk::kPyramid, lutk::kPyramid>(p, stream);
+    case lutk::kPrism:
+      return tri ? run<lutk::kPrism, lutk::kTrilinear>(p, stream)
+                 : run<lutk::kPrism, lutk::kPrism>(p, stream);
+    default:  // tetrahedral, and every unknown code
+      return tri ? run<lutk::kTetrahedral, lutk::kTrilinear>(p, stream)
+                 : run<lutk::kTetrahedral, lutk::kTetrahedral>(p, stream);
+  }
 }

@@ -1,5 +1,5 @@
-// 3D-LUT interpolation in FFmpeg lut3d semantics, shared by kernel A
-// (lut3d.cu), kernel C (coarse2.cu) and kernel B (fused420.cu).
+// 3D-LUT interpolation in FFmpeg lut3d semantics, shared by kernel B
+// (fused420.cuh) and kernels A and C (planar_lut.cuh).
 //
 // interp_cell follows colorcore/interp.py op for op: the domain mapping of
 // _prepare, PREV/NEXT/NEAR, FFmpeg's strict-comparison case splits, and the
@@ -7,11 +7,12 @@
 // built with -fmad=false, so no multiply-add is contracted and each
 // operation rounds like the NumPy and PyTorch versions do.
 //
-// The interpolation is a template parameter. Kernel B instantiates one
-// kernel per interp; kernels A and C pick one at run time (lut_apply with
-// an `interp` argument). The tetrahedral case split is selects, not
-// branches, so that the lanes of a warp in different tetrahedra run one
-// instruction stream.
+// The interpolation is a template parameter: each kernel instantiates one
+// kernel per interp. The tetrahedral case split is selects, not branches,
+// so that the lanes of a warp in different tetrahedra run one instruction
+// stream. Kernel B evaluates a pixel through lut_apply; kernels A and C
+// take interp_cell apart (planar_lut.cuh: corners, loads, sums) with the
+// same operations, and share its pieces below.
 //
 // Two table kinds, each with a lut_apply overload:
 //   LutArgs      the exact table, (N, N, N, 4) float32 indexed [r][g][b],
@@ -439,24 +440,6 @@ __device__ __forceinline__ float4 lut_apply(const Coarse2Args& C, float r,
           ? interp_cell<kTrilinear>(rc, sr, sg, sb, C.n - 1)
           : interp_cell<INTERP>(rc, sr, sg, sb, C.n - 1);
   return coarse_term<INTERP>(C, sr, sg, sb) + resid;
-}
-
-// The interp chosen at run time, for kernels A and C.
-template <class Args>
-__device__ __forceinline__ float4 lut_apply(const Args& a, int interp,
-                                            float r, float g, float b) {
-  switch (interp) {
-    case kNearest:
-      return lut_apply<kNearest>(a, r, g, b);
-    case kTrilinear:
-      return lut_apply<kTrilinear>(a, r, g, b);
-    case kPyramid:
-      return lut_apply<kPyramid>(a, r, g, b);
-    case kPrism:
-      return lut_apply<kPrism>(a, r, g, b);
-    default:
-      return lut_apply<kTetrahedral>(a, r, g, b);
-  }
 }
 
 }  // namespace lutk

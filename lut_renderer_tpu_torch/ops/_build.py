@@ -31,11 +31,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("lut3d.cu", "coarse2.cu", "fused420.cu", "fused420_coarse2.cu")
-HEADERS = ("lut_interp.cuh", "fused420.cuh")
+SOURCES = ("lut3d.cu", "coarse2.cu", "planar_probe.cu", "fused420.cu",
+           "fused420_coarse2.cu")
+HEADERS = ("lut_interp.cuh", "planar_lut.cuh", "fused420.cuh")
 ENTRY_POINTS = ("lut3d_launch", "coarse2_launch", "fused420_launch",
                 "fused420_coarse2_launch", "fused420_io_launch",
-                "fused420_color_launch")
+                "fused420_color_launch", "lut3d_io_launch",
+                "lut3d_weights_launch", "coarse2_io_launch",
+                "coarse2_weights_launch", "coarse2_coarse_launch",
+                "coarse2_resid_launch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
@@ -61,11 +65,11 @@ def nvcc_path() -> str:
                        "kernels cannot be built")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _digest(csrc: Path, files, flags) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+    for name in files:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -82,15 +86,15 @@ def run_all(cmds) -> None:
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
 
 
-def _compile(target: Path) -> None:
+def _compile(target: Path, csrc: Path, sources, flags) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{target.name}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in sources]
     tmp = BUILD_DIR / f"{tag}.tmp"
     nvcc = nvcc_path()
     try:
-        run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-              for s, o in zip(SOURCES, objs)])
+        run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
+                  str(csrc / s)] for s, o in zip(sources, objs)])
         run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *(str(o) for o in objs)]])
         os.replace(tmp, target)
@@ -111,6 +115,22 @@ def open_library(path: Path, entry_points) -> ctypes.CDLL:
     return lib
 
 
+def build_library(csrc: Path, sources, entry_points, flags=(),
+                  headers=None, name: str = "liblut_kernels") -> ctypes.CDLL:
+    """Build `sources` of the directory `csrc` with NVCC_FLAGS and
+    `flags` (unless a build of the same files and flags is there) and
+    load it. ``headers``: the headers the sources include, for the key
+    (default: every .cuh of `csrc`). For this package's kernels, and for
+    the probes' builds of variants and of other revisions' sources."""
+    if headers is None:
+        headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    files = tuple(sources) + tuple(headers)
+    target = BUILD_DIR / f"{name}_{_digest(csrc, files, flags)}.so"
+    if not target.exists():
+        _compile(target, csrc, sources, tuple(flags))
+    return open_library(target, entry_points)
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first call. Raises if it cannot be
     built or loaded; there is no fallback."""
@@ -119,10 +139,7 @@ def load_library() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         t0 = time.perf_counter()
-        target = BUILD_DIR / f"liblut_kernels_{_digest()}.so"
-        if not target.exists():
-            _compile(target)
-        lib = open_library(target, ENTRY_POINTS)
+        lib = build_library(CSRC, SOURCES, ENTRY_POINTS, headers=HEADERS)
         build_seconds = time.perf_counter() - t0
         _LIB = lib
         return lib

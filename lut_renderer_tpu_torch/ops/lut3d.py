@@ -6,8 +6,8 @@ dispatches here by the kind of table:
 
 * ``LutTable``: on a CUDA tensor kernel A (csrc/lut3d.cu), which replaces
   the JAX package's ``_run_fused`` (its int8 and bf16 pallas_call
-  launches): one thread per pixel reads the cell's corners straight from
-  the (N, N, N, 4) f32 table, exact in f32. Every non-coarse tier of the
+  launches): each pixel reads its cell's corners straight from the
+  (N, N, N, 4) f32 table, exact in f32. Every non-coarse tier of the
   JAX package approximates this one function. On a CPU tensor
   ``apply_lut_planes_reference``, the plain PyTorch re-expression of
   colorcore.interp (which cannot take ``xp=torch``: it calls ``.astype``).
@@ -16,6 +16,11 @@ dispatches here by the kind of table:
   big LUT at a ``coarse2*`` tier. On a CPU tensor
   ``apply_lut_planes_coarse2_reference``, which states the same function
   on the fine grid.
+
+Both kernels are instantiations of one skeleton (csrc/planar_lut.cuh): four
+pixels a thread, float4 plane I/O where the planes are aligned, the interp
+chosen on the host. ``prepared_launch`` serves the stage probe
+(probes/kernel_ac.py) and counts no launch.
 """
 
 from __future__ import annotations
@@ -202,8 +207,18 @@ def apply_lut_planes_coarse2_reference(r, g, b, lut: Coarse2Table,
 # kernels A and C
 # ---------------------------------------------------------------------------
 
+# kernels A and C built in stages, for the stage probe (probes/kernel_ac.py;
+# csrc/planar_probe.cu, tetrahedral only): io loads and stores the planes;
+# weights adds the domain map, the cells and the sums over stand-in corners,
+# no table load; coarse and resid (kernel C only) each run one term with its
+# loads; full is the production kernel
+PROBE_STAGES = ("io", "weights", "coarse", "resid", "full")
+_COARSE2_ONLY_STAGES = ("coarse", "resid")
+_MAX_PIXELS = (1 << 31) - 1  # the kernels index in int32
+
+
 class _Lut3dParams(ctypes.Structure):
-    """Mirror of Lut3dParams in csrc/lut3d.cu."""
+    """Mirror of Lut3dParams in csrc/planar_lut.cuh."""
 
     _fields_ = [
         ("r", ctypes.c_void_p), ("g", ctypes.c_void_p),
@@ -212,11 +227,12 @@ class _Lut3dParams(ctypes.Structure):
         ("table", ctypes.c_void_p), ("npix", ctypes.c_longlong),
         ("n", ctypes.c_int), ("interp", ctypes.c_int),
         ("dmin", ctypes.c_float * 3), ("dmax", ctypes.c_float * 3),
+        ("vec", ctypes.c_int),
     ]
 
 
 class _Coarse2Params(ctypes.Structure):
-    """Mirror of Coarse2Params in csrc/coarse2.cu."""
+    """Mirror of Coarse2Params in csrc/planar_lut.cuh."""
 
     _fields_ = [
         ("r", ctypes.c_void_p), ("g", ctypes.c_void_p),
@@ -227,6 +243,7 @@ class _Coarse2Params(ctypes.Structure):
         ("n", ctypes.c_int), ("m", ctypes.c_int), ("interp", ctypes.c_int),
         ("resid_interp", ctypes.c_int),
         ("dmin", ctypes.c_float * 3), ("dmax", ctypes.c_float * 3),
+        ("vec", ctypes.c_int),
     ]
 
 
@@ -254,6 +271,14 @@ def check_table(lut, device: torch.device) -> None:
     _check(lut.table, torch.float32, (n, n, n, 4), device, "LUT table")
 
 
+def check_pixel_count(npix: int) -> None:
+    """Kernels A and C index in int32: raise at 2^31 pixels or more."""
+    if npix > _MAX_PIXELS:
+        raise ValueError(f"kernels A and C take at most {_MAX_PIXELS} pixels "
+                         f"a launch (int32 indices), got {npix}; split the "
+                         f"batch")
+
+
 def _check_planes(r, g, b, what: str) -> None:
     for t in (r, g, b):
         if (t.device != r.device or t.dtype != torch.float32
@@ -262,40 +287,81 @@ def _check_planes(r, g, b, what: str) -> None:
                              f"of one shape on one device")
 
 
-def _coarse2_cuda(r, g, b, lut: Coarse2Table, interp: str):
-    global coarse2_launches
-    dev = r.device
-    check_table(lut, dev)
-    _check_planes(r, g, b, "kernel C")
-    ro, go, bo = (torch.empty_like(r) for _ in range(3))
-    p = _Coarse2Params(
-        r.data_ptr(), g.data_ptr(), b.data_ptr(),
-        ro.data_ptr(), go.data_ptr(), bo.data_ptr(),
-        lut.coarse.data_ptr(), lut.resid.data_ptr(),
-        lut.resid_scale.data_ptr(), r.numel(), lut.size, lut.coarse_size,
-        INTERP_CODES[interp], INTERP_CODES[resid_interp_for(lut, interp)],
-        (ctypes.c_float * 3)(*lut.domain_min),
-        (ctypes.c_float * 3)(*lut.domain_max))
-    _build.launch("coarse2_launch", p, dev)
-    coarse2_launches += 1
-    return ro, go, bo
+def vector_io(*planes: torch.Tensor) -> bool:
+    """Whether kernels A and C move `planes` as float4 vectors: every base
+    address 16-byte aligned (a contiguous view at an odd offset, such as
+    ``plane[1:]``, is not). Otherwise they take the scalar path."""
+    return all(t.data_ptr() % 16 == 0 for t in planes)
 
 
-def _lut3d_cuda(r, g, b, lut: LutTable, interp: str):
-    global launches
+def launch_args(r, g, b, lut: Union[LutTable, Coarse2Table], interp: str):
+    """Check the operands of kernel A or C (by the table's kind) on a CUDA
+    device and allocate its outputs: (params, (ro, go, bo), keep). ``keep``
+    holds every tensor the params point to; it must outlive the launch."""
     dev = r.device
+    coarse2 = isinstance(lut, Coarse2Table)
     check_table(lut, dev)
-    _check_planes(r, g, b, "kernel A")
+    _check_planes(r, g, b, "kernel C" if coarse2 else "kernel A")
+    check_pixel_count(r.numel())
     ro, go, bo = (torch.empty_like(r) for _ in range(3))
-    p = _Lut3dParams(
-        r.data_ptr(), g.data_ptr(), b.data_ptr(),
-        ro.data_ptr(), go.data_ptr(), bo.data_ptr(),
-        lut.table.data_ptr(), r.numel(), lut.size, INTERP_CODES[interp],
-        (ctypes.c_float * 3)(*lut.domain_min),
-        (ctypes.c_float * 3)(*lut.domain_max))
-    _build.launch("lut3d_launch", p, dev)
-    launches += 1
-    return ro, go, bo
+    planes = dict(r=r.data_ptr(), g=g.data_ptr(), b=b.data_ptr(),
+                  ro=ro.data_ptr(), go=go.data_ptr(), bo=bo.data_ptr())
+    common = dict(npix=r.numel(), n=lut.size, interp=INTERP_CODES[interp],
+                  dmin=(ctypes.c_float * 3)(*lut.domain_min),
+                  dmax=(ctypes.c_float * 3)(*lut.domain_max),
+                  vec=int(vector_io(r, g, b, ro, go, bo)), **planes)
+    if coarse2:
+        p = _Coarse2Params(
+            coarse=lut.coarse.data_ptr(), resid=lut.resid.data_ptr(),
+            rscale=lut.resid_scale.data_ptr(), m=lut.coarse_size,
+            resid_interp=INTERP_CODES[resid_interp_for(lut, interp)],
+            **common)
+    else:
+        p = _Lut3dParams(table=lut.table.data_ptr(), **common)
+    return p, (ro, go, bo), (r, g, b, lut)
+
+
+def entry_point(lut, stage: str = "full") -> str:
+    """The library entry that launches kernel A or C (by `lut`'s kind) at
+    `stage` of PROBE_STAGES."""
+    coarse2 = isinstance(lut, Coarse2Table)
+    if stage not in PROBE_STAGES or (stage in _COARSE2_ONLY_STAGES
+                                     and not coarse2):
+        raise ValueError(f"kernel {'C' if coarse2 else 'A'} has no stage "
+                         f"{stage!r}")
+    kind = "coarse2" if coarse2 else "lut3d"
+    return f"{kind}_launch" if stage == "full" else f"{kind}_{stage}_launch"
+
+
+def _apply_cuda(r, g, b, lut: Union[LutTable, Coarse2Table], interp: str):
+    global launches, coarse2_launches
+    p, out, _keep = launch_args(r, g, b, lut, interp)
+    _build.launch(entry_point(lut), p, r.device)
+    if isinstance(lut, Coarse2Table):
+        coarse2_launches += 1
+    else:
+        launches += 1
+    return out
+
+
+def prepared_launch(r, g, b, lut: Union[LutTable, Coarse2Table],
+                    interp: str = "tetrahedral", stage: str = "full"):
+    """(launch, (ro, go, bo)) on CUDA tensors: each ``launch()`` runs
+    kernel A or C at `stage` of PROBE_STAGES on operands checked once,
+    into the same outputs. For the stage probe and for timing the kernel
+    apart from the wrapper's host work; it counts no launch and never runs
+    on a render path. The stages below ``full`` are tetrahedral only."""
+    interp = canonical_interp(interp)
+    if stage != "full" and interp != "tetrahedral":
+        raise ValueError(f"stage {stage!r} is built for tetrahedral only")
+    name = entry_point(lut, stage)
+    p, out, keep = launch_args(r, g, b, lut, interp)
+    keep += out  # the launch holds every tensor p points to
+
+    def launch():
+        _build.launch(name, p, keep[0].device)
+
+    return launch, out
 
 
 def apply_lut_planes(r, g, b, lut: Union[LutTable, Coarse2Table],
@@ -307,14 +373,11 @@ def apply_lut_planes(r, g, b, lut: Union[LutTable, Coarse2Table],
     CUDA tensors launch kernel A or kernel C by the table's kind (raising
     if it cannot build or launch); CPU tensors run the plain version."""
     interp = canonical_interp(interp)
-    coarse2 = isinstance(lut, Coarse2Table)
     if r.device.type == "cuda":
-        planes = (r.contiguous(), g.contiguous(), b.contiguous())
-        if coarse2:
-            return _coarse2_cuda(*planes, lut, interp)
-        return _lut3d_cuda(*planes, lut, interp)
+        return _apply_cuda(r.contiguous(), g.contiguous(), b.contiguous(),
+                           lut, interp)
     if r.device.type != "cpu":
         raise ValueError(f"unsupported device {r.device}")
-    if coarse2:
+    if isinstance(lut, Coarse2Table):
         return apply_lut_planes_coarse2_reference(r, g, b, lut, interp)
     return apply_lut_planes_reference(r, g, b, lut, interp)

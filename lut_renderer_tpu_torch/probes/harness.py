@@ -1,13 +1,16 @@
-"""Seeded inputs and the CUDA-event timer shared by ``chip_smoke.py`` and
-the kernel probes."""
+"""Seeded inputs, the CUDA-event timer and the card's name shared by
+``chip_smoke.py`` and the kernel probes."""
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 
 import numpy as np
+import torch
 
 from ..colorcore import Lut3D
+from ..ops.pixel import render_planes
 
 SEED = 20260
 
@@ -98,6 +101,39 @@ def tie_frames(seed: int, b: int, h: int, w: int, depth: int = 8,
     return y, u, v
 
 
+def plain_rgb(frames, cfg, dev):
+    """The float RGB planes that the plain layout hands its LUT call
+    (ops/pixel.render_planes) for integer (y, u, v) numpy `frames`, on
+    `dev`: what kernels A and C take on a render path."""
+    y, u, v = (torch.from_numpy(p).to(dev) for p in frames)
+    seen = []
+
+    def capture(r, g, b):
+        seen.append(tuple(t.contiguous() for t in (r, g, b)))
+        return r, g, b
+
+    render_planes(y, u, v, cfg, capture)
+    return seen[0]
+
+
+def uniform_rgb(seed: int, shape, dev):
+    """Seeded float planes uniform in [-0.05, 1.05): every LUT cell equally
+    likely and neighbouring pixels in unrelated cells (the worst case for
+    the gathers), with a margin that the clip takes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.rand(shape, generator=g, device=dev) * 1.1 - 0.05
+                 for _ in range(3))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
 def time_ms(fn, iters: int, warmup: int = 2, reps: int = 3,
             graph: bool = False) -> float:
     """Milliseconds per call of fn() on the card: CUDA events around
@@ -108,8 +144,6 @@ def time_ms(fn, iters: int, warmup: int = 2, reps: int = 3,
     exceed a short kernel's time and leave the card idle between
     launches) stays out of the number. For kernels whose launches are
     prepared once (ops/fused420.prepared_launch)."""
-    import torch
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()

@@ -19,10 +19,9 @@ uniform-random frames, io says what memory and indexing cost, color - io
 the colour math, full - color the LUT.
 
 ``--baseline DIR`` names the csrc/ directory of another revision of this
-package, whose fused420.cu holds the strings of BASELINE_PATCHES (the
-kernel with one thread per chroma site), for example
-``git archive <rev> lut_renderer_tpu_torch/csrc`` unpacked there. That
-fused420.cu is built three times with the stage patches, its stages are
+package that builds kernel B's stages itself (commit 7ef7f79 and later),
+for example ``git archive <rev> lut_renderer_tpu_torch/csrc`` unpacked
+there. Its fused420.cu and fused420_coarse2.cu are built, its stages are
 timed beside the current kernel's, and then the two full kernels run in
 turns (baseline, current, current, baseline) on the same planes over
 kernel B's cases (COMPARE_CASES), on ramp, uniform-random and tie-heavy
@@ -37,10 +36,8 @@ writes it to a file as well.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import shutil
-import subprocess
 import sys
 from dataclasses import replace
 from pathlib import Path
@@ -53,6 +50,7 @@ from ..ops.render import RenderConfig
 from .harness import (
     KERNEL_B_CASES,
     SEED,
+    card_line,
     random_lut,
     tie_frames,
     time_ms,
@@ -65,32 +63,9 @@ STAGES = fused420.PROBE_STAGES
 FRAMES = {"ramp": yuv_frames, "uniform": uniform_frames, "ties": tie_frames}
 STAGE_FRAMES = ("ramp", "uniform")
 
-# (text, replacement) in the baseline's fused420.cu, each found exactly
-# once. PROBE_STAGE (0 io, 1 color, 2 full) is set with -D at the build;
-# at 2 the source is the baseline's own.
-BASELINE_PATCHES = (
-    ('#include "lut_interp.cuh"\n',
-     '#include "lut_interp.cuh"\n\n#ifndef PROBE_STAGE\n'
-     '#define PROBE_STAGE 2\n#endif\n'),
-    ("        if (p.normalize) {  // ops/pixel.range_normalize\n",
-     "        if (PROBE_STAGE == 0) {\n"
-     "          uo[dy][dx] = uf;\n"
-     "          vo[dy][dx] = vf;\n"
-     "          store_px(p.yo, ybase + (long long)row * W + col, p.out16,\n"
-     "                   fminf(fmaxf(floorf(yf + 0.5f), 0.0f), p.maxv_out));\n"
-     "          continue;\n"
-     "        }\n"
-     "        if (p.normalize) {  // ops/pixel.range_normalize\n"),
-    ("        const float4 o = lutk::lut_apply(L, p.interp, r, g, b);\n",
-     "        const float4 o = PROBE_STAGE == 1\n"
-     "                             ? make_float4(r, g, b, 0.0f)\n"
-     "                             : lutk::lut_apply(L, p.interp, r, g, b);\n"),
-    ("    float uc, vc;\n    if constexpr (OSY == 1 && OSX == 1) {\n",
-     "    float uc, vc;\n    if constexpr (PROBE_STAGE == 0) {\n"
-     "      uc = uo[0][0];\n      vc = vo[0][0];\n"
-     "    } else if constexpr (OSY == 1 && OSX == 1) {\n"),
-)
-BASELINE_ENTRY_POINTS = ("fused420_launch", "fused420_coarse2_launch")
+BASELINE_SOURCES = ("fused420.cu", "fused420_coarse2.cu")
+BASELINE_ENTRY_POINTS = ("fused420_launch", "fused420_coarse2_launch",
+                         "fused420_io_launch", "fused420_color_launch")
 
 # beside KERNEL_B_CASES, the cases chip_smoke's phase 3 builds itself:
 # RenderConfig overrides, (batch, height, width), (LUT size, seed offset),
@@ -110,43 +85,19 @@ COMPARE_CASES = {
 }
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+def build_baseline(csrc: Path):
+    """The kernel B library of another revision's csrc/ directory."""
+    return _build.build_library(csrc, BASELINE_SOURCES, BASELINE_ENTRY_POINTS,
+                                name="libbaseline_kernel_b")
 
 
-def build_baseline(csrc: Path) -> dict:
-    """{stage: library} of the baseline's kernel B, one build per stage,
-    all started at once."""
-    src = (csrc / "fused420.cu").read_text()
-    for old, new in BASELINE_PATCHES:
-        if src.count(old) != 1:
-            raise ValueError(f"{csrc}/fused420.cu: expected one {old!r}")
-        src = src.replace(old, new)
-    header = (csrc / "lut_interp.cuh").read_bytes()
-    tag = hashlib.sha256(src.encode() + header).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"baseline_{tag}"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "fused420.cu").write_text(src)
-    (out / "lut_interp.cuh").write_bytes(header)
-    libs = {stage: out / f"libkernel_b_{stage}.so" for stage in STAGES}
-    nvcc = _build.nvcc_path()
-    _build.run_all([[nvcc, *_build.NVCC_FLAGS, f"-DPROBE_STAGE={i}",
-                     "-shared", "-o", str(lib), str(out / "fused420.cu")]
-                    for i, lib in enumerate(libs.values())])
-    return {stage: _build.open_library(path, BASELINE_ENTRY_POINTS)
-            for stage, path in libs.items()}
-
-
-def baseline_launch(lib, y, u, v, table, cfg):
+def baseline_launch(lib, y, u, v, table, cfg, stage: str = "full"):
     """(launch, (yo, uo, vo)): ``launch()`` runs the baseline library's
-    kernel B on operands the current wrapper checks and lays out once."""
+    kernel B at `stage` on operands the current wrapper checks and lays
+    out once."""
     p, out, keep = fused420.launch_args(y, u, v, table, cfg, None)
     keep += out + (table,)  # the launch holds every tensor p points to
-    name = fused420.entry_point(table)
+    name = fused420.entry_point(table, stage)
 
     def launch():
         _build.launch(name, p, keep[0].device, lib=lib)
@@ -168,7 +119,7 @@ def case_inputs(name: str, frames: str, dev):
 
 def stage_times(dev, baseline=None) -> dict:
     """{kernel: {frames: {stage: ms}}} at 4K x 2 420p8, 33^3 tetrahedral:
-    the current kernel, and the baseline's when its libraries are given."""
+    the current kernel, and the baseline's when its library is given."""
     out = {}
     for frames in STAGE_FRAMES:
         cfg, planes, table = case_inputs("4K 420p8 33^3", frames, dev)
@@ -176,8 +127,8 @@ def stage_times(dev, baseline=None) -> dict:
                                                         s)[0]
                             for s in STAGES}}
         if baseline is not None:
-            runs["baseline"] = {s: baseline_launch(baseline[s], *planes,
-                                                   table, cfg)[0]
+            runs["baseline"] = {s: baseline_launch(baseline, *planes, table,
+                                                   cfg, s)[0]
                                 for s in STAGES}
         for kernel, fns in runs.items():
             out.setdefault(kernel, {})[frames] = {
@@ -192,7 +143,7 @@ def compare(dev, baseline) -> dict:
     for name in COMPARE_CASES:
         for frames in FRAMES:
             cfg, planes, table = case_inputs(name, frames, dev)
-            old, want = baseline_launch(baseline["full"], *planes, table, cfg)
+            old, want = baseline_launch(baseline, *planes, table, cfg)
             new, got = fused420.prepared_launch(*planes, table, cfg)
             old()
             new()

@@ -21,7 +21,7 @@ from lut_renderer_tpu_torch.engine.executor import render_batches
 from lut_renderer_tpu_torch.ops import fused420, lut3d
 from lut_renderer_tpu_torch.ops.prepare import Coarse2Table, LutTable
 from lut_renderer_tpu_torch.ops.render import RenderConfig, make_render_fn
-from lut_renderer_tpu_torch.probes.harness import tie_frames
+from lut_renderer_tpu_torch.probes.harness import plain_rgb, tie_frames
 
 from torch_parity import (  # noqa: F401
     CASES,
@@ -80,6 +80,8 @@ def _coarse2(n, tier, device, seed=8):
 @pytest.mark.parametrize("tier", ["coarse2f", "coarse2", "coarse2x",
                                   "coarse2f_tri"])
 def test_kernel_c_matches_plain(cuda_device, interp, tier):
+    """Every (interp, residual interp) instantiation: the render's own
+    under three tiers, trilinear under coarse2f_tri."""
     lut = _coarse2(65, tier, cuda_device)
     rgb = rgb_planes(9, (17, 301))
     rgb[:, 2, :40] = 1.0  # the top edge of the grid (coarse line M clamps)
@@ -280,3 +282,112 @@ def test_kernel_b_probe_stages_launch(cuda_device, stage):
             assert torch.equal(a, e)
     elif stage == "io":  # the identity colour math: y out is y in
         assert torch.equal(got[0], yuv[0])
+
+
+def _planar_table(kind, device, n=65):
+    lut = LutTable.from_lut3d(random_lut(n, seed=12, domain=DOMAIN), device)
+    return lut if kind == "A" else Coarse2Table.from_lut_table(lut,
+                                                              "coarse2f")
+
+
+def _plain_lut(table):
+    return (lut3d.apply_lut_planes_coarse2_reference
+            if isinstance(table, Coarse2Table)
+            else lut3d.apply_lut_planes_reference)
+
+
+def _planar_vs_plain(r, g, b, table, interp="tetrahedral"):
+    counter = "coarse2_launches" if isinstance(table, Coarse2Table) \
+        else "launches"
+    before = getattr(lut3d, counter)
+    got = lut3d.apply_lut_planes(r, g, b, table, interp)
+    torch.cuda.synchronize()
+    assert getattr(lut3d, counter) == before + 1
+    want = _plain_lut(table)(r, g, b, table, interp)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=0, atol=LUT_ATOL)
+    return got
+
+
+@pytest.mark.parametrize("kind", ["A", "C"])
+@pytest.mark.parametrize("shape", [(3, 1367), (2, 2049), (3, 1369)])
+def test_planar_kernels_pixel_count_not_a_multiple_of_4(cuda_device, kind,
+                                                        shape):
+    """A last unit that the pixels fill only in part."""
+    assert shape[0] * shape[1] % 4
+    table = _planar_table(kind, cuda_device)
+    rgb = to_torch(*rgb_planes(17, shape), device=cuda_device)
+    assert lut3d.vector_io(*rgb)
+    _planar_vs_plain(*rgb, table)
+
+
+@pytest.mark.parametrize("kind", ["A", "C"])
+def test_planar_kernels_unaligned_planes(cuda_device, kind):
+    table = _planar_table(kind, cuda_device)
+    r, g, b = to_torch(*rgb_planes(18, (16, 257)), device=cuda_device)
+    views = [t.reshape(-1)[1:] for t in (r, g, b)]
+    assert not lut3d.vector_io(*views)
+    got = _planar_vs_plain(*views, table)
+    # the same pixels on aligned planes give the same bits
+    aligned = [v.clone() for v in views]
+    assert lut3d.vector_io(*aligned)
+    for a, e in zip(lut3d.apply_lut_planes(*aligned, table), got):
+        assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+@pytest.mark.parametrize("kind", ["A", "C"])
+def test_planar_kernels_tie_heavy_planes(cuda_device, kind, interp):
+    """Grey pixels (equal deltas) and clipped channels: the RGB that the
+    plain layout hands the LUT for harness.tie_frames, full range."""
+    cfg = RenderConfig(in_full_range=True, work_full_range=True,
+                       out_full_range=True)
+    rgb = plain_rgb(tie_frames(23, 2, 16, 192), cfg, cuda_device)
+    _planar_vs_plain(*rgb, _planar_table(kind, cuda_device, n=65), interp)
+
+
+def test_kernel_a_129(cuda_device):
+    lut = LutTable.from_lut3d(random_lut(129, seed=13), cuda_device)
+    r, g, b = to_torch(*rgb_planes(19, (64, 257)), device=cuda_device)
+    _planar_vs_plain(r, g, b, lut)
+
+
+@pytest.mark.parametrize("kind,stage", [
+    ("A", "io"), ("A", "weights"), ("A", "full"), ("C", "io"),
+    ("C", "weights"), ("C", "coarse"), ("C", "resid"), ("C", "full")])
+def test_planar_probe_stages_launch(cuda_device, kind, stage):
+    """The stage probe's builds run and count no launch; io returns its
+    input, full equals the production kernel and coarse + resid equals
+    full, bit for bit."""
+    table = _planar_table(kind, cuda_device)
+    rgb = to_torch(*rgb_planes(20, (16, 256)), device=cuda_device)
+    before = (lut3d.launches, lut3d.coarse2_launches)
+    launch, got = lut3d.prepared_launch(*rgb, table, "tetrahedral", stage)
+    launch()
+    torch.cuda.synchronize()
+    assert (lut3d.launches, lut3d.coarse2_launches) == before
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    if stage == "io":
+        assert all(torch.equal(a, e) for a, e in zip(got, rgb))
+    elif stage == "full":
+        want = lut3d.apply_lut_planes(*rgb, table)
+        assert all(torch.equal(a, e) for a, e in zip(got, want))
+    elif stage == "resid":
+        coarse, other = lut3d.prepared_launch(*rgb, table, "tetrahedral",
+                                              "coarse")
+        coarse()
+        want = lut3d.apply_lut_planes(*rgb, table)
+        assert all(torch.equal(a + c, e)
+                   for a, c, e in zip(got, other, want))
+
+
+def test_planar_kernels_refuse_2_31_pixels(cuda_device):
+    """Kernels A and C index in int32; the wrapper raises before it
+    allocates an output."""
+    plane = torch.empty(1 << 31, dtype=torch.float32, device=cuda_device)
+    for kind in ("A", "C"):
+        with pytest.raises(ValueError, match="int32"):
+            lut3d.apply_lut_planes(plane, plane, plane,
+                                   _planar_table(kind, cuda_device))
+    del plane
+    torch.cuda.empty_cache()
