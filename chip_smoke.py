@@ -40,10 +40,27 @@ through the port's CLI. Phases:
                          coarse2f (kernel B's coarse2 instantiation), and
                          an error-diffusion job through kernel C
   5. file to file        CLI render --device cuda vs --device cpu
+  6. resize path         the device loop over seeded frames with a resize
+                         (kernel A at the input size, then the resample):
+                         4K -> 1080p (16 frames, batch 2, also ordered
+                         dither and error diffusion) and 1080p -> 4K (16,
+                         batch 8); kernel A's launch count; the first batch
+                         against the plain version; fps, and per batch
+                         kernel A, the resample (beside its dense FLOP
+                         count and bound), the rest, H2D and D2H
+  6T. resample precision resample_plane against a float64 product, then
+                         again with allow_tf32=True: bit-equal
+  7. split               make_sharded_render_fn over two streams of card 0
+                         (and over every card where there are several),
+                         main and resize paths: bit-equal to the whole
+                         batch
+  8. serve               the port's warmup, QueueServer on a Unix socket,
+                         ping/status/shutdown through the CLI client (and
+                         a resized job where hostio loads)
 
 Any failure raises and exits non-zero. The one thing caught is hostio's
 own report that this machine has no FFmpeg libraries (no cv2, or
-FFIUnavailable), which skips phase 5 and says why. Without a CUDA device it
+FFIUnavailable), which skips phase 5 and phase 8's job and says why. Without a CUDA device it
 exits non-zero before printing any result. The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernels' JSON
 (each kernel's time on the paths' planes and on uniform ones, its stages,
@@ -72,6 +89,9 @@ COARSE2 = ("coarse2f", "coarse2", "coarse2x")
 # float code values out of the plain layout: the LUT's 1e-5 through the
 # output matrix and the code-value scale (255 at 8 bits)
 ED_ATOL = 0.01
+# the resample against a float64 product of its f32 inputs: full f32 over
+# K <= 3840 terms reads about 1e-6; TF32's 10-bit mantissa about 1e-3
+RESAMPLE_RTOL = 1e-5
 BIG = "coarse2f"  # the big-cube path's tier
 
 # The least time the card could take, from the H100 SXM peaks: 3.35 TB/s
@@ -646,6 +666,280 @@ def main() -> int:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- 6. resize path: kernel A, then the resample -------------------------
+    from lut_renderer_tpu_torch.ops.resample import resample_plane, weights_on
+
+    def resample_fn(wv, wh):
+        return lambda r, g, b: tuple(resample_plane(p, wv, wh)
+                                     for p in (r, g, b))
+
+    def resize_path(what, in_wh, out_wh, n_frames, seed, **kw):
+        """The executor's device loop over seeded frames resized in_wh ->
+        out_wh (kernel A at the input size, then the resample); its launch
+        counts, the first batch against the plain version, fps, and the
+        per-batch split from CUDA events."""
+        (w, h), (ow, oh) = in_wh, out_wh
+        cfg = replace(main_cfg, resize=out_wh, **kw)
+        ed = cfg.dither == "error_diffusion_host"
+        b = _pick_batch_size(w, h)
+        fr = yuv_frames(seed, n_frames, h, w)
+        bats = [(fr[0][i:i + b], fr[1][i:i + b], fr[2][i:i + b],
+                 len(fr[0][i:i + b])) for i in range(0, n_frames, b)]
+        fn = make_render_fn(lut33, cfg, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in render_batches(iter(bats), fn, dev):
+            pass
+        cold = n_frames / (time.perf_counter() - t0)
+        saved = start_path()
+        first, n_out = None, 0
+        t0 = time.perf_counter()
+        for o in render_batches(iter(bats), fn, dev):
+            if o[0].shape[1:] != (oh, ow) \
+                    or o[1].shape[1:] != (oh // 2, ow // 2):
+                fail(f"{what} output shapes {o[0].shape} {o[1].shape}")
+            if ed and not all(np.isfinite(p).all() for p in o[:3]):
+                fail(f"{what} error-diffusion planes not finite")
+            if first is None:
+                first = [p.copy() for p in o[:3]]
+            n_out += o[3]
+        wall = time.perf_counter() - t0
+        counts = end_path(saved)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if counts != {"A": len(bats), "C": 0, "B": 0, "B coarse2": 0}:
+            fail(f"{what} launches {counts}, expected A={len(bats)}")
+        if n_out != n_frames:
+            fail(f"{what} returned {n_out} of {n_frames} frames")
+        # the plain version: kernel A's plain twin, the same resample
+        planes = [torch.from_numpy(p).to(dev) for p in bats[0][:3]]
+        wv, wh = weights_on((h, w), out_wh, dev)
+        want = render_planes(*planes, cfg, lambda r, g, bb:
+                             lut3d.apply_lut_planes_reference(
+                                 r, g, bb, table33, cfg.interp),
+                             resample_fn(wv, wh))
+        if ed:
+            d = max(float(np.abs(a - e.cpu().numpy()).max())
+                    for a, e in zip(first, want))
+            if not d <= ED_ATOL:
+                fail(f"{what} float planes max|d|={d} > {ED_ATOL}")
+        else:
+            d = code_diff([torch.from_numpy(p) for p in first],
+                          [x.cpu() for x in want], f"{what} first batch")
+        # one batch's split (CUDA events): kernel A on the RGB the plain
+        # layout hands it, the resample of its output, the whole render
+        # function (the rest is what remains), H2D and D2H
+        rgb = plain_rgb(bats[1][:3] if len(bats) > 1 else bats[0][:3], cfg,
+                        dev)
+        a_ms = time_ms(lut3d.prepared_launch(*rgb, table33, TETRA)[0], 10,
+                       graph=True)
+        lut_out = lut3d.prepared_launch(*rgb, table33, TETRA)
+        lut_out[0]()
+        rs = resample_fn(wv, wh)
+        rs_ms = time_ms(lambda: rs(*lut_out[1]), 5)
+        dev_in = [torch.from_numpy(p).to(dev) for p in bats[-1][:3]]
+        total_ms = time_ms(lambda: fn(*dev_in), 5)
+        host = [torch.from_numpy(p).pin_memory() for p in bats[-1][:3]]
+        h2d = time_ms(lambda: [x.to(dev, non_blocking=True) for x in host], 10)
+        outs = fn(*dev_in)
+        pinned = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                  for o in outs]
+        d2h = time_ms(lambda: [p.copy_(o, non_blocking=True)
+                               for p, o in zip(pinned, outs)], 10)
+        # the resample's work on this batch: dense products as run, and
+        # the least time for its function (planes in and out once; the
+        # banded taps of the weights)
+        dense_flops = 3 * b * 2 * (oh * h * w + oh * w * ow)
+        banded_flops = 3 * b * 2 * (int((wv != 0).sum()) * w
+                                    + int((wh != 0).sum()) * oh)
+        rs_bound, rs_by = bound(3 * b * 4 * (h * w + oh * ow), banded_flops)
+        rec = dict(frames=n_frames, batch=b, fps=n_frames / wall,
+                   cold_fps=cold, max_abs_diff=d, launches=counts["A"],
+                   peak_device_gb=peak_gb, kernel_a_ms=a_ms,
+                   resample_ms=rs_ms, rest_ms=total_ms - a_ms - rs_ms,
+                   render_fn_ms=total_ms, h2d_ms=h2d, d2h_ms=d2h,
+                   resample_dense_gflop=dense_flops / 1e9,
+                   resample_dense_floor_ms=dense_flops / F32_FLOPS_PER_S
+                   * 1e3,
+                   resample_bound_ms=rs_bound, resample_bound_by=rs_by,
+                   resample_share=rs_bound / rs_ms)
+        print(f"phase 6 {what}: {n_frames} frames {w}x{h} -> {ow}x{oh} "
+              f"420p8 33^3 tetrahedral{' ' + cfg.dither if kw else ''} in "
+              f"{len(bats)} batches of {b}: {rec['fps']:.2f} fps end to end "
+              f"(cold pass {cold:.2f}); per batch kernel A {a_ms:.4f} ms, "
+              f"resample {rs_ms:.3f} ms (dense {rec['resample_dense_gflop']:.1f}"
+              f" GFLOP, f32 floor {rec['resample_dense_floor_ms']:.3f} ms; "
+              f"bound {rs_bound:.4f} ms by {rs_by}, share "
+              f"{rec['resample_share']:.3%}), rest of the plain layout "
+              f"{rec['rest_ms']:.3f} ms (render fn {total_ms:.3f}), H2D "
+              f"{h2d:.3f} ms, D2H {d2h:.3f} ms; first batch vs plain "
+              f"max|d|={d:.3g}; launches {counts}; peak device memory "
+              f"{peak_gb:.2f} GB; card {card}", flush=True)
+        return rec
+
+    resize = {
+        "4K->1080p": resize_path("4K->1080p", (3840, 2160), (1920, 1080),
+                                 16, SEED + 60),
+        "1080p->4K": resize_path("1080p->4K", (1920, 1080), (3840, 2160),
+                                 16, SEED + 61),
+        "4K->1080p ordered": resize_path("4K->1080p ordered", (3840, 2160),
+                                         (1920, 1080), 8, SEED + 62,
+                                         dither="ordered"),
+        "4K->1080p error diffusion": resize_path(
+            "4K->1080p error diffusion", (3840, 2160), (1920, 1080), 4,
+            SEED + 63, dither="error_diffusion_host"),
+    }
+
+    # ---- 6T. the resample's precision, and TF32 invariance ---------------
+    precision = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for what, (h, w), out_wh in (("4K->1080p", (2160, 3840), (1920, 1080)),
+                                 ("1080p->4K", (1080, 1920), (3840, 2160))):
+        x = torch.rand((2, h, w), generator=g, device=dev)
+        wv, wh = weights_on((h, w), out_wh, dev)
+        got = resample_plane(x, wv, wh)
+        ref = torch.matmul(torch.matmul(wv.double(), x.double()),
+                           wh.double().t())
+        rel = float((got.double() - ref).abs().max() / ref.abs().max())
+        if not rel < RESAMPLE_RTOL:
+            fail(f"resample {what}: max relative error {rel} >= "
+                 f"{RESAMPLE_RTOL} against float64 (not full f32)")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            again = resample_plane(x, wv, wh)
+            # the same product outside ops.resample, under TF32: what the
+            # switch keeps out
+            loose = torch.matmul(torch.matmul(wv, x), wh.t())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if not torch.equal(got, again):
+            fail(f"resample {what}: output changed with allow_tf32=True")
+        loose_rel = float((loose.double() - ref).abs().max()
+                          / ref.abs().max())
+        precision[what] = dict(max_rel_err=rel, tf32_bit_equal=True,
+                               unguarded_tf32_max_rel_err=loose_rel)
+        print(f"phase 6T resample precision {what} x2: max relative error "
+              f"{rel:.3g} against float64 (< {RESAMPLE_RTOL}); bit-equal "
+              f"with allow_tf32=True set by the phase (a plain matmul "
+              f"under TF32: {loose_rel:.3g})", flush=True)
+    del x, got, again, loose, ref
+
+    # ---- 7. the batch split over two streams of one card ---------------------
+    from lut_renderer_tpu_torch.parallel import (
+        default_mesh,
+        make_sharded_render_fn,
+    )
+
+    meshes = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        meshes.append([str(d) for d in default_mesh()])
+    split = {}
+    for mesh in meshes:
+        for what, cfg, key, (w, h) in (
+                ("main path", main_cfg, "B", (3840, 2160)),
+                ("resize path", replace(main_cfg, resize=(1920, 1080)), "A",
+                 (3840, 2160))):
+            fn = make_render_fn(lut33, cfg, dev)
+            sharded = make_sharded_render_fn(lut33, cfg, mesh)
+            # two frames a chunk, then one chunk a frame short
+            for n in (2 * len(mesh), 2 * len(mesh) - 1):
+                fr = yuv_frames(SEED + 70 + n, n, h, w)
+                planes = [torch.from_numpy(p).to(dev) for p in fr]
+                whole = fn(*planes)
+                saved = start_path()
+                parts = sharded(*planes)
+                from_host = sharded(*(torch.from_numpy(p).pin_memory()
+                                      for p in fr))
+                counts = end_path(saved)
+                if counts[key] != 2 * len(mesh) or sum(counts.values()) \
+                        != counts[key]:
+                    fail(f"split {mesh} {what}: launches {counts}")
+                for a, e, c in zip(parts, whole, from_host):
+                    if not (torch.equal(a, e) and torch.equal(c, e)):
+                        fail(f"split {mesh} {what} batch {n}: not bit-equal "
+                             f"to the whole batch")
+            split[f"{'+'.join(mesh)} {what}"] = "bit-equal"
+            print(f"phase 7 split over {mesh} ({what}, 4K 420p8 33^3, "
+                  f"batches of {2 * len(mesh)} and {2 * len(mesh) - 1}, "
+                  f"device and pinned host inputs): "
+                  f"bit-equal to the whole batch; kernel {key} launched "
+                  f"once a chunk", flush=True)
+    del planes, whole, parts, from_host
+
+    # ---- 8. serve ----------------------------------------------------------
+    import contextlib
+    import io
+
+    from lut_renderer_tpu_torch.app import cli
+    from lut_renderer_tpu_torch.app.server import QueueServer
+    from lut_renderer_tpu_torch.engine.warmup import warmup_kernels
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=Path.cwd()))
+    os.environ["LUT_TPU_CONFIG_DIR"] = str(tmp / "config")
+    os.environ["LUT_TPU_THUMB_DIR"] = str(tmp / "thumbs")
+
+    def client(req):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["client", json.dumps(req), "--socket", str(sock)])
+        resp = json.loads(buf.getvalue())
+        if rc != 0 or not resp.get("ok"):
+            fail(f"serve: client {req} -> rc {rc}, {resp}")
+        return resp
+
+    try:
+        t0 = time.perf_counter()
+        recs = warmup_kernels("cuda")
+        warm_s = time.perf_counter() - t0
+        if not all(r["ok"] for r in recs):
+            fail(f"serve warmup: {recs}")
+        # a short relative path: a Unix socket's path is at most 107 bytes
+        sock = Path(os.path.relpath(tmp)) / "serve.sock"
+        t0 = time.perf_counter()
+        server = QueueServer(sock, device="cuda")
+        server.start()
+        start_s = time.perf_counter() - t0
+        try:
+            ping = client({"op": "ping"})
+            status = client({"op": "status"})
+            submitted = "skipped, hostio cannot load its FFmpeg libraries"
+            if probe is None:
+                from lut_renderer_tpu_torch.colorcore import write_cube_file
+                from lut_renderer_tpu_torch.hostio.decode import VideoDecoder
+                from lut_renderer_tpu_torch.utils.fixtures import (
+                    make_gradient_clip,
+                )
+
+                clip = make_gradient_clip(tmp / "clip.mp4", 640, 360,
+                                          frames=12, pattern="zoneplate")
+                cube = write_cube_file(tmp / "look.cube", lut33)
+                resp = client({"op": "submit", "files": [str(clip)],
+                               "lut": str(cube), "out_dir": str(tmp / "out"),
+                               "params": {"video_codec": "ffv1",
+                                          "resolution": "320x180"}})
+                (tid,) = resp["task_ids"]
+                if not server.manager.wait_all(timeout=300):
+                    fail("serve: the submitted job did not finish")
+                task = client({"op": "status", "task_id": tid})["task"]
+                if task["status"] != "completed":
+                    fail(f"serve: job {task['status']}: {task['error']}")
+                with VideoDecoder(task["output"]) as dec:
+                    if (dec.width, dec.height) != (320, 180):
+                        fail(f"serve: output {dec.width}x{dec.height}, "
+                             f"expected 320x180")
+                submitted = "640x360 clip -> 320x180 output"
+            client({"op": "shutdown"})
+            if not server.shutdown_requested.wait(10):
+                fail("serve: shutdown was not signalled")
+        finally:
+            server.stop()
+        print(f"phase 8 serve: warmup {warm_s:.2f} s ("
+              + ", ".join(f"{r['label']} {r['seconds']} s" for r in recs)
+              + f"), QueueServer up in {start_s:.3f} s on device cuda; "
+              f"client ping {ping}, status of {len(status['tasks'])} "
+              f"task(s), submit: {submitted}; shutdown", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # every kernel at the main paths' shape: a batch of 2 4K frames
     px = bsz * 2160 * 3840
     io_bytes = {"A": 24 * px, "C": 24 * px,  # 3 f32 planes in, 3 out
@@ -679,6 +973,8 @@ def main() -> int:
                                    "grid_sample",
                       trilinear_ms=report["A"]["trilinear_ms"],
                       stages_ms=ac_stages["A 33^3"])
+    kernels[0]["resize_path_launches"] = {k: v["launches"]
+                                          for k, v in resize.items()}
     kernels[1]["stages_ms"] = stages
     kernels[3]["stages_ms"] = ac_stages["C 129^3 coarse2f"]
     print(json.dumps({"main_path_fps": fps, "cold_pass_fps": cold_fps,
@@ -688,7 +984,8 @@ def main() -> int:
                       "big_cube_frames": n_big,
                       "kernel_c_vs_a_ms": c_times,
                       "kernel_b_coarse2_vs_exact_ms": b2_times,
-                      "table_build_ms": build_ms}))
+                      "table_build_ms": build_ms, "resize_paths": resize,
+                      "resample_precision": precision, "split": split}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,13 @@ imports (tests/test_torch_hostside.py holds them to the originals):
   native_ext  the optional C++ helpers of native/ (cube parse, error
             diffusion)
   device    explicit device choice; "cuda" without a card raises
-  ops       pixel ops, the LUT tables, kernels A, B and C, render dispatch
-  engine    decode -> device render -> encode stage executor
+  ops       pixel ops, the LUT tables, kernels A, B and C, the resample,
+            render dispatch
+  parallel  the frame batch split across cards
+  engine    decode -> device render -> encode stage executor; warm start
   tasks     task runner and queue over the port's executor
-  app       CLI: render, doctor, and the app helpers
+  app       CLI (the JAX CLI's 13 subcommands), serve daemon, web UI,
+            TUI, and the app helpers
 
 This package imports torch, and nothing of jax or of the JAX package.
 """

@@ -11,11 +11,17 @@ flight: batch N+1 is copied in (pinned staging, non-blocking, on a copy
 stream) and rendered before the host waits for batch N's copy out, which
 runs on its own stream after an event that marks the end of the render.
 
+With more than one card and ``device="cuda"`` (no index), the frame batch
+is split across the cards as the JAX executor shards it over its mesh
+(parallel.sharding); ``"cuda:N"`` pins one card. The batch then rounds up
+to a multiple of the card count, and the split stages through the first
+card: its copy engine takes every batch in and out.
+
 Not carried over from the JAX executor: geometry bucketing (CUDA kernels
 take runtime shapes, so there is no per-shape compile to avoid), the
-gather fallback on a non-TPU platform and the device mesh (the device is
-explicit), and the per-LUT precision gate (the tier log names the tier
-``ops.render.lut_tier`` runs: exact, or the requested coarse2 tier).
+gather fallback on a non-TPU platform (the device is explicit), and the
+per-LUT precision gate (the tier log names the tier ``ops.render.lut_tier``
+runs: exact, or the requested coarse2 tier).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +44,7 @@ from ..plan.policy import RenderSpec
 
 from ..device import DeviceLike, resolve_device
 from ..ops.render import lut_tier, make_render_fn
+from ..parallel import default_mesh, make_sharded_render_fn
 from .config import (
     derive_encoder_settings,
     derive_render_config,
@@ -88,6 +95,18 @@ def _pick_batch_size(width: int, height: int) -> int:
     # target ~16 Mpix per device step; clamp to [1, 16]
     per = max(1, width * height)
     return int(max(1, min(16, round(16_000_000 / per))))
+
+
+def stage_devices(device: DeviceLike = "cuda",
+                  use_mesh: Optional[bool] = None) -> List[torch.device]:
+    """The devices a stage renders on: `device`, or with `use_mesh` every
+    visible card (parallel.default_mesh). None splits when `device` is
+    plain ``"cuda"`` (no index) and torch sees more than one card."""
+    dev = resolve_device(device)
+    if use_mesh is None:
+        use_mesh = (dev.type == "cuda" and torch.device(device).index is None
+                    and torch.cuda.device_count() > 1)
+    return default_mesh() if use_mesh else [dev]
 
 
 def render_batches(batches: Iterable[HostBatch], render_fn,
@@ -158,14 +177,18 @@ def run_stage(
     device: DeviceLike = "cuda",
     lut_strategy: str = "mxu",
     profile_dir: Optional[str] = None,
+    use_mesh: Optional[bool] = None,
 ) -> StageResult:
     """Render one stage file to file. `lut` is a LutTable, a Coarse2Table,
     the JAX package's PreparedLut, a parsed Lut3D, or None. An unusable `device`
     raises; media and render failures return a failed StageResult.
     `lut_strategy` is accepted for parity with the JAX executor; both
-    values run the same kernels."""
+    values run the same kernels. `use_mesh`: split the batch across every
+    visible card; None does so when `device` is plain ``"cuda"`` and there
+    is more than one card."""
     del lut_strategy
-    dev = resolve_device(device)
+    mesh = stage_devices(device, use_mesh)
+    dev = mesh[0]
     log = log_cb or (lambda m: None)
     progress = progress_cb or (lambda p: None)
     cancel = cancel or threading.Event()
@@ -198,12 +221,7 @@ def run_stage(
             # the task factory echoes the source size into `resolution`;
             # a 1:1 resample is the identity, so the no-op is dropped
             cfg = dataclasses.replace(cfg, resize=None)
-        if cfg.resize is not None:
-            dec.close()
-            return StageResult(
-                ok=False,
-                error=f"resize to {cfg.resize[0]}x{cfg.resize[1]} is not "
-                      f"ported to the PyTorch engine yet")
+        # the batch size follows the input geometry, as in the JAX executor
         bsz = batch_size or _pick_batch_size(w, h)
         log(
             f"engine: {w}x{h} -> {out_w}x{out_h} @{float(fps):.3f}fps, "
@@ -239,7 +257,14 @@ def run_stage(
             dec.close()
             return StageResult(ok=False, error=f"encoder open failed: {exc}")
 
-        render_fn = make_render_fn(lut, cfg, dev)
+        if len(mesh) > 1:
+            ndev = len(mesh)
+            bsz = max(ndev, ((bsz + ndev - 1) // ndev) * ndev)
+            render_fn = make_sharded_render_fn(lut, cfg, mesh)
+            log(f"engine: frame batch split over {ndev} devices "
+                f"({', '.join(map(str, mesh))}), batch={bsz}")
+        else:
+            render_fn = make_render_fn(lut, cfg, dev)
         sched = FrameScheduler(spec.fps_mode, fps)
 
         total_est = None

@@ -159,10 +159,13 @@ LutFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                  Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
-def render_planes(y, u, v, cfg, lut_fn: LutFn = None):
-    """The plain layout of ops/render.render_yuv_frame (JAX), without
-    resize: integer planes -> normalise -> 4:4:4 -> RGB -> `lut_fn` ->
-    YUV -> chroma downsample -> quantise. `lut_fn` None skips the LUT.
+def render_planes(y, u, v, cfg, lut_fn: LutFn = None,
+                  resize_fn: LutFn = None):
+    """The plain layout of ops/render.render_yuv_frame (JAX): integer
+    planes -> normalise -> 4:4:4 -> RGB -> `lut_fn` -> `resize_fn` -> YUV
+    -> chroma downsample -> quantise. `lut_fn` None skips the LUT,
+    `resize_fn` None keeps the size (the JAX package resamples the RGB
+    planes between the LUT and RGB->YUV).
 
     With ``cfg.dither == "error_diffusion_host"`` the float planes return
     unquantised; the executor finishes them on the host."""
@@ -178,6 +181,8 @@ def render_planes(y, u, v, cfg, lut_fn: LutFn = None):
                                 cfg.work_full_range)
     if lut_fn is not None:
         r, g, b = lut_fn(r, g, b)
+    if resize_fn is not None:
+        r, g, b = resize_fn(r, g, b)
     yo, uo, vo = rgb_to_yuv_planes(r, g, b, cfg.matrix_out, cfg.out_depth,
                                    cfg.out_full_range)
     uo, vo = _downsample(uo, vo, cfg.out_subsampling)

@@ -17,9 +17,14 @@ from the exact table (kernels A and B): the JAX package's own fall-through
 (its lut3d.py:932) for the latter, and its non-coarse tiers all
 approximate the exact function.
 
+A resize (``cfg.resize``, the policy's ``-s WxH``) takes the plain layout,
+as in the JAX package: kernel A (or C) at the input size, then the
+swscale-matched bicubic of ops.resample on the RGB planes, then RGB->YUV.
+
 PyTorch runs eagerly, so ``make_render_fn`` compiles nothing: it caches a
 prepared callable per (config, LUT size, domain and tier, device) that
-holds the per-config constants, and uploads the LUT once.
+holds the per-config constants and the resize weights on the device, and
+uploads the LUT once.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from .fused420 import bayer_tensor, fused420_applicable, render_fused420
 from .lut3d import apply_lut_planes
 from .pixel import render_planes
 from .prepare import COARSE2_TIERS, Coarse2Table, LutTable, has_coarse2
+from .resample import resample_plane, weights_on
 
 Table = Union[LutTable, Coarse2Table]
 
@@ -68,7 +74,8 @@ class RenderConfig:
     # requantise after range normalisation, as the reference's 8-bit
     # intermediate `format=yuv420p` step does
     requantize_intermediate: bool = True
-    # output (w, h) of the policy's `-s WxH`; not ported yet (raises)
+    # output (w, h) of the policy's `-s WxH`: the plain layout, resampled
+    # after the LUT (ops.resample)
     resize: Optional[Tuple[int, int]] = None
     # "auto" | "fused" | "plain" | "rowphase" (alias of plain)
     phase_layout: str = "auto"
@@ -102,21 +109,25 @@ def lut_tier(precision: str, size: int) -> str:
 
 
 def render_yuv_frame(y, u, v, lut: Optional[Table], cfg: RenderConfig,
-                     bayer=None):
+                     bayer=None, resize_weights=None):
     """One (batched) frame through the pipeline. Inputs are integer
     code-value planes (uint8/uint16) at cfg.in_depth with
-    cfg.in_subsampling chroma, on the device the work runs on."""
-    if cfg.resize is not None:
-        raise NotImplementedError(
-            "resize is not ported yet (ops/resample.py); the port never "
-            "skips it silently")
+    cfg.in_subsampling chroma, on the device the work runs on.
+    resize_weights: the (Wv, Wh) pair of cfg.resize for this input size on
+    that device (make_render_fn caches it); None builds it here."""
     if _use_fused(y, u, cfg, lut):
         return render_fused420(y, u, v, lut, cfg, bayer=bayer)
-    lut_fn = None
+    lut_fn = resize_fn = None
     if cfg.apply_lut and lut is not None:
         def lut_fn(r, g, b):
             return apply_lut_planes(r, g, b, lut, cfg.interp)
-    return render_planes(y, u, v, cfg, lut_fn)
+    if cfg.resize is not None:
+        wv, wh = (resize_weights if resize_weights is not None
+                  else weights_on(y.shape[-2:], cfg.resize, y.device))
+
+        def resize_fn(r, g, b):
+            return tuple(resample_plane(p, wv, wh) for p in (r, g, b))
+    return render_planes(y, u, v, cfg, lut_fn, resize_fn)
 
 
 def lut_operands_for(lut, cfg: RenderConfig,
@@ -145,15 +156,38 @@ def lut_operands_for(lut, cfg: RenderConfig,
 
 class _Renderer:
     """The prepared callable for one (cfg, LUT size/domain/tier, device):
-    the device's Bayer tensor and the config, with the LUT table passed per
-    call so that LUTs of one size share it."""
+    the device's Bayer tensor, the config and, for a resize, the (Wv, Wh)
+    pairs on the device by input (H, W), with the LUT table passed per call
+    so that LUTs of one size share it."""
+
+    # an 8K pair is about 155 MB of device memory
+    WEIGHTS_MAX = 4
 
     def __init__(self, cfg: RenderConfig, device: torch.device):
         self.cfg = cfg
+        self.device = device
         self.bayer = bayer_tensor(device) if cfg.dither == "ordered" else None
+        self._weights: dict = {}
+        # runners of a daemon share this renderer (_RENDER_FN_CACHE)
+        self._weights_lock = threading.Lock()
+
+    def resize_weights(self, hw: Tuple[int, int]):
+        """The (Wv, Wh) pair for input size `hw`, built once; FIFO-bounded."""
+        with self._weights_lock:
+            pair = self._weights.get(hw)
+            if pair is None:
+                pair = weights_on(hw, self.cfg.resize, self.device)
+                while len(self._weights) >= self.WEIGHTS_MAX:
+                    self._weights.pop(next(iter(self._weights)))
+                self._weights[hw] = pair
+            return pair
 
     def __call__(self, y, u, v, lut):
-        return render_yuv_frame(y, u, v, lut, self.cfg, bayer=self.bayer)
+        rsw = None
+        if self.cfg.resize is not None:
+            rsw = self.resize_weights((int(y.shape[-2]), int(y.shape[-1])))
+        return render_yuv_frame(y, u, v, lut, self.cfg, bayer=self.bayer,
+                                resize_weights=rsw)
 
 
 _RENDER_FN_CACHE: dict = {}

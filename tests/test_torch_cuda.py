@@ -391,3 +391,80 @@ def test_planar_kernels_refuse_2_31_pixels(cuda_device):
                                    _planar_table(kind, cuda_device))
     del plane
     torch.cuda.empty_cache()
+
+
+# ---- the resize path, the resample's precision, the split -----------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(dither="ordered"),
+                                dict(lut_precision="coarse2f")],
+                         ids=["none", "ordered", "coarse2f"])
+@pytest.mark.parametrize("shape,size", [((2, 64, 128), (96, 40)),
+                                        ((1, 36, 64), (128, 72))],
+                         ids=["down", "up"])
+def test_resize_path_matches_plain(cuda_device, kw, shape, size):
+    """Kernel A (C at a coarse2 tier) at the input size, then the
+    resample: the render function against the plain LUT with the same
+    resample, under the integer contract."""
+    from lut_renderer_tpu_torch.ops.pixel import render_planes
+    from lut_renderer_tpu_torch.ops.resample import resample_plane, weights_on
+
+    n = 65 if kw.get("lut_precision") else 17
+    cfg = RenderConfig(resize=size, **kw)
+    table = LutTable.from_lut3d(random_lut(n, seed=9, domain=DOMAIN),
+                                cuda_device)
+    if kw.get("lut_precision"):
+        table = Coarse2Table.from_lut_table(table, kw["lut_precision"])
+    y, u, v = to_torch(*planes(11, *shape, 8), device=cuda_device)
+    counter = "coarse2_launches" if kw.get("lut_precision") else "launches"
+    before = getattr(lut3d, counter)
+    got = make_render_fn(table, cfg, cuda_device)(y, u, v)
+    torch.cuda.synchronize()
+    assert getattr(lut3d, counter) == before + 1
+    plain = (lut3d.apply_lut_planes_coarse2_reference
+             if kw.get("lut_precision") else lut3d.apply_lut_planes_reference)
+    wv, wh = weights_on(shape[1:], size, cuda_device)
+    want = render_planes(
+        y, u, v, cfg, lambda r, g, b: plain(r, g, b, table, cfg.interp),
+        lambda r, g, b: tuple(resample_plane(p, wv, wh) for p in (r, g, b)))
+    assert got[0].shape == (shape[0], size[1], size[0])
+    assert_integer_contract(got, want, f"resize {shape}->{size} {kw}")
+
+
+def test_resample_is_full_f32_whatever_the_tf32_setting(cuda_device):
+    from lut_renderer_tpu_torch.ops.resample import resample_plane, weights_on
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.rand((2, 540, 960), generator=g, device=cuda_device)
+    wv, wh = weights_on((540, 960), (1920, 1080), cuda_device)
+    mm = torch.backends.cuda.matmul
+    saved = mm.fp32_precision
+    try:
+        mm.fp32_precision = "ieee"
+        got = resample_plane(x, wv, wh)
+        mm.allow_tf32 = True
+        again = resample_plane(x, wv, wh)
+        assert mm.allow_tf32  # the caller's setting is back
+    finally:
+        mm.fp32_precision = saved
+    assert torch.equal(got, again)
+    ref = torch.matmul(torch.matmul(wv.double(), x.double()),
+                       wh.double().t())
+    rel = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert rel < 1e-5, rel
+
+
+@pytest.mark.parametrize("resize", [None, (96, 40)], ids=["main", "resize"])
+def test_split_over_two_streams_is_bit_equal(cuda_device, resize):
+    from lut_renderer_tpu_torch.parallel import make_sharded_render_fn
+
+    lut = random_lut(33, seed=12)
+    cfg = RenderConfig(resize=resize)
+    whole_fn = make_render_fn(lut, cfg, cuda_device)
+    split_fn = make_sharded_render_fn(lut, cfg, ["cuda:0", "cuda:0"])
+    for b in (4, 3):
+        y, u, v = planes(13 + b, b, 64, 128, 8)
+        whole = whole_fn(*to_torch(y, u, v, device=cuda_device))
+        for got in (split_fn(*to_torch(y, u, v, device=cuda_device)),
+                    split_fn(*to_torch(y, u, v))):  # from the host
+            for a, e in zip(got, whole):
+                assert a.device == e.device and torch.equal(a, e)

@@ -117,7 +117,8 @@ def test_run_stage_resize_and_cancel(media, tmp_path):
     assert load_lut_table(cube, "cpu") is lut  # cached
     spec, info = _spec(clip, cube, tmp_path / "r.mkv", resolution="64x48")
     res = run_stage(spec, info, lut, device="cpu")
-    assert not res.ok and "not ported" in res.error
+    assert res.ok, res.error
+    assert _decoded(spec.output)[0].shape == (10, 48, 64)
     # a resize to the source size is the identity and is dropped
     spec, info = _spec(clip, cube, tmp_path / "same.mkv",
                        resolution="128x96")
@@ -171,12 +172,16 @@ def test_cli_device_cuda_without_card_raises(media, tmp_path):
 
 
 def test_cli_parser_offers_render_and_doctor_only(capsys):
+    """The parser offers render and doctor, and now every other subcommand
+    of the JAX CLI too; an unknown one is refused."""
     parser = cli.build_parser()
     args = parser.parse_args(["render", "x.mp4"])
     assert args.device == "cuda" and args.fn is cli.cmd_render
     assert parser.parse_args(["doctor"]).fn is cli.cmd_doctor
+    args = parser.parse_args(["serve", "--socket", "s"])
+    assert args.fn is cli.cmd_serve and args.device == "cuda"
     with pytest.raises(SystemExit):
-        parser.parse_args(["serve", "--socket", "s"])
+        parser.parse_args(["bogus"])
     rc = cli.main(["doctor"])
     out = capsys.readouterr().out
     assert "torch" in out and "hostio FFmpeg libs" in out

@@ -62,6 +62,8 @@ COPIES = (
     "app/settings.py", "app/lut_history.py", "app/naming.py",
     "app/estimate.py", "app/defaults.py", "app/taskfactory.py",
     "app/presets.py", "app/monitor.py", "app/termio.py",
+    "app/__init__.py", "app/help.py", "app/icon.py", "app/thumbnails.py",
+    "app/webui_page.py", "app/tui.py",
     "utils/__init__.py", "utils/fixtures.py",
 )
 
@@ -222,13 +224,38 @@ def _flags(parser, command):
             for a in sub.choices[command]._actions}
 
 
+def _commands(parser):
+    return next(a for a in parser._actions if a.dest == "command").choices
+
+
 def test_port_parser_render_flags_are_the_jax_flags_plus_device():
     port, jax = tcli.build_parser(), jcli.build_parser()
     extra = _flags(port, "render") - _flags(jax, "render")
     assert extra == {(("--device",), "device", "cuda")}
     assert _flags(jax, "render") <= _flags(port, "render")
-    sub = next(a for a in port._actions if a.dest == "command")
-    assert sorted(sub.choices) == ["doctor", "render"]
+    assert list(_commands(port)) == list(_commands(jax))
+    assert len(_commands(port)) == 13
+
+
+# the subcommands that render take --device besides the JAX flags
+RENDERING = ("render", "resume", "serve", "tui", "doctor")
+
+
+@pytest.mark.parametrize("command", sorted(_commands(jcli.build_parser())))
+def test_port_subcommand_flags_are_the_jax_flags(command):
+    """Flag by flag (option strings, destination, default, choices, nargs),
+    every subcommand of the port's parser against the JAX parser's; the
+    only extra is --device on the ones that render."""
+    def flags(parser):
+        return {(tuple(a.option_strings), a.dest, repr(a.default),
+                 tuple(a.choices or ()), a.nargs)
+                for a in _commands(parser)[command]._actions}
+
+    port, jax = flags(tcli.build_parser()), flags(jcli.build_parser())
+    extra = {(("--device",), "device", "'cuda'", (), None)} \
+        if command in RENDERING else set()
+    assert port - jax == extra
+    assert jax <= port
 
 
 def test_port_params_from_args_is_the_jax_one():

@@ -55,9 +55,24 @@ def test_port_modules_import_no_jax():
     mods = list(_modules())
     assert "lut_renderer_tpu_torch.ops.fused420" in mods
     assert "lut_renderer_tpu_torch.app.cli" in mods
+    assert {"lut_renderer_tpu_torch.ops.resample",
+            "lut_renderer_tpu_torch.parallel",
+            "lut_renderer_tpu_torch.parallel.sharding",
+            "lut_renderer_tpu_torch.engine.warmup",
+            "lut_renderer_tpu_torch.app.server",
+            "lut_renderer_tpu_torch.app.webui",
+            "lut_renderer_tpu_torch.app.webui_page",
+            "lut_renderer_tpu_torch.app.tui",
+            "lut_renderer_tpu_torch.app.help",
+            "lut_renderer_tpu_torch.app.icon",
+            "lut_renderer_tpu_torch.app.thumbnails"} <= set(mods)
     smoke = sorted({m for m in _imported(REPO / "chip_smoke.py")
                     if m.startswith("lut_renderer_tpu_torch")})
     assert "lut_renderer_tpu_torch.hostio.decode" in smoke
+    assert {"lut_renderer_tpu_torch.ops.resample",
+            "lut_renderer_tpu_torch.parallel",
+            "lut_renderer_tpu_torch.app.server",
+            "lut_renderer_tpu_torch.engine.warmup"} <= set(smoke)
     _fresh("import importlib, sys\n"
            f"for m in {mods + smoke + ['chip_smoke']!r}:\n"
            "    importlib.import_module(m)\n")

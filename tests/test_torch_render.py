@@ -84,10 +84,15 @@ def test_forced_fused_raises_and_bad_layout_raises(lut):
 
 
 def test_resize_raises_until_ported(lut):
+    """The resize is ported (ops.resample): it renders at the new size on
+    the plain layout, where it raised before; tests/test_torch_resample.py
+    holds it to the JAX package."""
     y, u, v = to_torch(*planes(1, 1, 16, 64, 8))
     cfg = trender.RenderConfig(resize=(32, 8))
-    with pytest.raises(NotImplementedError):
-        trender.render_yuv_frame(y, u, v, LutTable.from_lut3d(lut, "cpu"), cfg)
+    out = trender.render_yuv_frame(y, u, v, LutTable.from_lut3d(lut, "cpu"),
+                                   cfg)
+    assert [tuple(p.shape) for p in out] == [(1, 8, 32), (1, 4, 16),
+                                             (1, 4, 16)]
 
 
 def test_lut_table_from_prepared_equals_from_lut3d(lut):
