@@ -57,6 +57,19 @@ through the port's CLI. Phases:
   8. serve               the port's warmup, QueueServer on a Unix socket,
                          ping/status/shutdown through the CLI client (and
                          a resized job where hostio loads)
+  9. BASELINE configs    each stage of BASELINE.json's five configurations
+                         (probes/baseline.py: RenderConfig derived by the
+                         policy from a synthetic probe result) through the
+                         device loop over seeded frames: the 4K 422p10
+                         pro master (kernel B) and its delivery stage (no
+                         LUT, the plain layout's torch ops, on the master's
+                         frames), 1080p 65^3 10-bit -> 8-bit ordered
+                         dither, 8K 10-bit at batch 1 (and split over two
+                         streams of card 0, bit-equal), 1080p trilinear,
+                         1080p full range; fps (cold pass apart), per batch
+                         H2D / render / D2H, kernel B's launches, peak
+                         device memory, the first batch against its plain
+                         version
 
 Any failure raises and exits non-zero. The one thing caught is hostio's
 own report that this machine has no FFmpeg libraries (no cv2, or
@@ -65,7 +78,8 @@ exits non-zero before printing any result. The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernels' JSON
 (each kernel's time on the paths' planes and on uniform ones, its stages,
 plain time, least possible time and its share of it, launches on its
-path) and the one before that the card's name and power limit.
+path; kernel B's entry also holds phase 9's records) and the one before
+that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -151,6 +165,14 @@ def main() -> int:
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
     dev = torch.device("cuda", 0)
+    # wall-clock seconds of each phase (the script's time on the card)
+    phase_s, last = {}, [None, time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        if last[0] is not None:
+            phase_s[last[0]] = round(now - last[1], 2)
+        last[:] = [name, now]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -176,6 +198,7 @@ def main() -> int:
     )
 
     # ---- 1. card and build ------------------------------------------------
+    mark("1")
     card = card_line()
     print(f"phase 1 card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
@@ -189,6 +212,7 @@ def main() -> int:
     report = {}
 
     # ---- 2. kernel A vs its plain version ---------------------------------
+    mark("2")
     main_cfg = RenderConfig()
     # the main path's batch: 2 frames of 3840x2160 (executor batch rule);
     # planes of two kinds: ramp, the RGB that the plain layout hands the
@@ -264,6 +288,7 @@ def main() -> int:
     del tri, grid, tab_t, tri_launch, odd
 
     # ---- 2C. kernel C vs its plain version --------------------------------
+    mark("2C")
     err_c, c_times = 0.0, {}
     for n in (65, 97, 129):
         exact = LutTable.from_lut3d(random_lut(n, SEED + n), dev)
@@ -324,6 +349,7 @@ def main() -> int:
     del big_c, big_exact, exact, table
 
     # ---- 2P. the stage probe of kernels A and C -----------------------------
+    mark("2P")
     ac_stages = kernel_ac.stage_times(dev, ("A 33^3", "C 129^3 coarse2f"))
     print("phase 2P kernels A and C stages, 4K x 2 tetrahedral (io: "
           "load/store; weights: + domain map, cells, sums; coarse / resid: "
@@ -334,6 +360,7 @@ def main() -> int:
               for kind, t in kinds.items()), flush=True)
 
     # ---- 3. kernel B vs its plain version ---------------------------------
+    mark("3")
     lut33 = random_lut(33, SEED)
 
     def fused_check(cfg, b, h, w, lut, seed, what, tier=None):
@@ -437,6 +464,7 @@ def main() -> int:
     del planes4k, rgb_r, rgb_u, planes
 
     # ---- 3P. kernel B's stage probe -------------------------------------
+    mark("3P")
     stages = kernel_b.stage_times(dev)["current"]
     print("phase 3P kernel B stages, 4K x 2 420p8 33^3 tetrahedral (io: "
           "load/convert/quantise/store; color: + range, YUV<->RGB, dither, "
@@ -446,6 +474,7 @@ def main() -> int:
               for frames, t in stages.items()), flush=True)
 
     # ---- 4. main path -----------------------------------------------------
+    mark("4")
     n_frames = 48
     frames = yuv_frames(SEED + 4, n_frames, 2160, 3840)
     batches = [(frames[0][i:i + bsz], frames[1][i:i + bsz],
@@ -544,6 +573,7 @@ def main() -> int:
     del frames, batches, ed_batches, first_out, dev_in, dev_out, pinned, host
 
     # ---- 4C. big-cube path: 129^3 at the coarse2f tier ----------------------
+    mark("4C")
     n_big = 16
     lut129 = random_lut(129, SEED + 129)
     frames = yuv_frames(SEED + 40, n_big, 2160, 3840)
@@ -611,6 +641,7 @@ def main() -> int:
     del frames, big_batches, big_ed, first_out, ed_first, want, first
 
     # ---- 5. file to file --------------------------------------------------
+    mark("5")
     from lut_renderer_tpu_torch.hostio.ffi import FFIUnavailable, get_ffi
 
     # only hostio's own "no FFmpeg libraries here" skips the phase; any
@@ -667,6 +698,7 @@ def main() -> int:
             shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- 6. resize path: kernel A, then the resample -------------------------
+    mark("6")
     from lut_renderer_tpu_torch.ops.resample import resample_plane, weights_on
 
     def resample_fn(wv, wh):
@@ -790,6 +822,7 @@ def main() -> int:
     }
 
     # ---- 6T. the resample's precision, and TF32 invariance ---------------
+    mark("6T")
     precision = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     for what, (h, w), out_wh in (("4K->1080p", (2160, 3840), (1920, 1080)),
@@ -824,6 +857,7 @@ def main() -> int:
     del x, got, again, loose, ref
 
     # ---- 7. the batch split over two streams of one card ---------------------
+    mark("7")
     from lut_renderer_tpu_torch.parallel import (
         default_mesh,
         make_sharded_render_fn,
@@ -866,6 +900,7 @@ def main() -> int:
     del planes, whole, parts, from_host
 
     # ---- 8. serve ----------------------------------------------------------
+    mark("8")
     import contextlib
     import io
 
@@ -940,6 +975,159 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- 9. BASELINE configurations through the device loop ---------------
+    mark("9")
+    from lut_renderer_tpu_torch.ops.render import lut_operands_for
+    from lut_renderer_tpu_torch.probes.baseline import baseline_stages
+    from lut_renderer_tpu_torch.probes.harness import device_frames
+
+    sub_shift = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}  # (x, y)
+
+    def batches_of(frames, b):
+        n = len(frames[0])
+        return [(frames[0][i:i + b], frames[1][i:i + b], frames[2][i:i + b],
+                 min(b, n - i)) for i in range(0, n, b)]
+
+    def baseline_run(st, bats, lut):
+        """The stage's render function over `bats` through the device loop:
+        a cold pass, then a counted one; the first batch against its plain
+        version; one batch's CUDA-event split; peak device memory."""
+        cfg, (w, h) = st.cfg, (st.info.width, st.info.height)
+        sx, sy = sub_shift[cfg.out_subsampling]
+        shapes = [(h, w), (h >> sy, w >> sx), (h >> sy, w >> sx)]
+        dtype = np.uint16 if cfg.out_depth > 8 else np.uint8
+        fn = make_render_fn(lut, cfg, dev)
+        t0 = time.perf_counter()
+        for _ in render_batches(iter(bats), fn, dev):
+            pass
+        cold = st.frames / (time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        saved = start_path()
+        first, n_out = None, 0
+        t0 = time.perf_counter()
+        for o in render_batches(iter(bats), fn, dev):
+            if [p.shape[1:] for p in o[:3]] != shapes \
+                    or any(p.dtype != dtype for p in o[:3]):
+                fail(f"{st.name}: output {[p.shape for p in o[:3]]} "
+                     f"{o[0].dtype}, expected {shapes} {dtype.__name__}")
+            if first is None:
+                # held, not copied: its pinned buffers stay out of reuse
+                first = o[:3]
+            n_out += o[3]
+        wall = time.perf_counter() - t0
+        counts = end_path(saved)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        want_b = len(bats) if lut is not None else 0
+        if counts != {"A": 0, "C": 0, "B": want_b, "B coarse2": 0}:
+            fail(f"{st.name}: launches {counts}, expected B={want_b}")
+        if n_out != st.frames:
+            fail(f"{st.name}: returned {n_out} of {st.frames} frames")
+        # the plain version: kernel B's plain twin on the card, or with no
+        # LUT (the plain layout's torch ops only) the same function on the
+        # CPU
+        if lut is not None:
+            want = fused420.render_fused420_reference(
+                *(torch.from_numpy(p).to(dev) for p in bats[0][:3]),
+                lut_operands_for(lut, cfg, dev), cfg)
+        else:
+            want = make_render_fn(None, cfg, "cpu")(
+                *(torch.from_numpy(p) for p in bats[0][:3]))
+        d = code_diff([torch.from_numpy(p) for p in first],
+                      [x.cpu() for x in want], f"{st.name} first batch")
+        # one batch's split (CUDA events): H2D from pinned memory, the
+        # render function, D2H into pinned memory
+        host = [torch.from_numpy(p).pin_memory() for p in bats[-1][:3]]
+        h2d = time_ms(lambda: [x.to(dev, non_blocking=True) for x in host], 10)
+        dev_in = [x.to(dev) for x in host]
+        render_ms = time_ms(lambda: fn(*dev_in), 10)
+        outs = fn(*dev_in)
+        pinned = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                  for o in outs]
+        d2h = time_ms(lambda: [p.copy_(o, non_blocking=True)
+                               for p, o in zip(pinned, outs)], 10)
+        b = len(bats[0][0])
+        rec = dict(config=st.name,
+                   source=f"{w}x{h} {st.info.pix_fmt}",
+                   output=f"{st.spec.pix_fmt} ({st.spec.video_codec})",
+                   lut=f"{st.lut_size}^3 {cfg.interp}" if lut is not None
+                   else None,
+                   dither=cfg.dither,
+                   range="full -> limited" if cfg.in_full_range
+                   and not cfg.out_full_range else "limited",
+                   frames=st.frames, batch=b, fps=st.frames / wall,
+                   cold_fps=cold, h2d_ms=h2d, render_ms=render_ms,
+                   d2h_ms=d2h, kernel_b_launches=counts["B"],
+                   peak_device_gb=peak_gb, max_abs_diff=d)
+        print(f"phase 9 {st.name}: {st.frames} frames {rec['source']} -> "
+              f"{rec['output']}, {rec['lut'] or 'no LUT'}, dither "
+              f"{cfg.dither}, in batches of {b}: {rec['fps']:.2f} fps end to "
+              f"end (cold pass {cold:.2f}); per batch H2D {h2d:.3f} ms, "
+              f"render {render_ms:.3f} ms, D2H {d2h:.3f} ms; kernel B "
+              f"launches {counts['B']}; peak device memory {peak_gb:.2f} "
+              f"GB; first batch vs plain max|d|={d}; card {card}",
+              flush=True)
+        del dev_in, outs, pinned, host, want
+        return rec
+
+    baseline = baseline_stages()
+    # a stage's output that a later stage takes as its source (the pro
+    # master), by path
+    kept = {}
+    configs = []
+    for st in baseline:
+        lut = (random_lut(st.lut_size, SEED + 90 + st.lut_size)
+               if st.lut_size else None)
+        b = _pick_batch_size(st.info.width, st.info.height)
+        if st.spec.source in kept:
+            bats = batches_of(kept.pop(st.spec.source), b)
+        else:
+            bats = batches_of(device_frames(
+                SEED + 90 + len(configs), st.frames, st.info.height,
+                st.info.width, st.cfg.in_depth, st.cfg.in_subsampling, dev), b)
+        configs.append(baseline_run(st, bats, lut))
+        if any(s.spec.source == st.spec.output for s in baseline):
+            # the frames the next stage decodes, kept on the host
+            outs = [[p.copy() for p in o[:3]] for o in render_batches(
+                iter(bats), make_render_fn(lut, st.cfg, dev), dev)]
+            kept[st.spec.output] = [np.concatenate([o[k] for o in outs])
+                                    for k in range(3)]
+            del outs
+        if st.info.width == 7680:
+            # the split over two streams of card 0, in lockstep with the
+            # single run: at the executor's batch (one frame: a one-frame
+            # chunk and an empty one) and at run_stage's batch for two
+            # devices (2: a frame a chunk)
+            split8k = {}
+            for sb in (b, 2):
+                sbats = bats if sb == b else batches_of(
+                    [np.concatenate([x[k] for x in bats]) for k in range(3)],
+                    sb)
+                single = make_render_fn(lut, st.cfg, dev)
+                sharded = make_sharded_render_fn(lut, st.cfg,
+                                                 ["cuda:0", "cuda:0"])
+                saved = start_path()
+                for whole, part in zip(
+                        render_batches(iter(sbats), single, dev),
+                        render_batches(iter(sbats), sharded, dev)):
+                    if not all(np.array_equal(a, e)
+                               for a, e in zip(part[:3], whole[:3])):
+                        fail(f"{st.name}: split at batch {sb} not "
+                             f"bit-equal to the single run")
+                counts = end_path(saved)
+                chunks = sum(min(2, len(x[0])) for x in sbats)
+                if counts["B"] != len(sbats) + chunks:
+                    fail(f"{st.name}: split at batch {sb} launches {counts}, "
+                         f"expected B={len(sbats) + chunks}")
+                split8k[f"batch {sb}"] = dict(bit_equal=True, chunks=chunks)
+            configs[-1]["split_cuda0_cuda0"] = split8k
+            print(f"phase 9 {st.name} split over ['cuda:0', 'cuda:0'], "
+                  f"in lockstep with the single run: bit-equal at batch {b} "
+                  f"({split8k[f'batch {b}']['chunks']} one-frame chunks, the "
+                  f"empty ones skipped) and at batch 2 "
+                  f"({split8k['batch 2']['chunks']} chunks)", flush=True)
+        del bats
+    mark(None)
+
     # every kernel at the main paths' shape: a batch of 2 4K frames
     px = bsz * 2160 * 3840
     io_bytes = {"A": 24 * px, "C": 24 * px,  # 3 f32 planes in, 3 out
@@ -976,6 +1164,8 @@ def main() -> int:
     kernels[0]["resize_path_launches"] = {k: v["launches"]
                                           for k, v in resize.items()}
     kernels[1]["stages_ms"] = stages
+    # phase 9: every BASELINE configuration's stage through the device loop
+    kernels[1]["baseline_configs"] = configs
     kernels[3]["stages_ms"] = ac_stages["C 129^3 coarse2f"]
     print(json.dumps({"main_path_fps": fps, "cold_pass_fps": cold_fps,
                       "frames": n_frames,
@@ -985,7 +1175,8 @@ def main() -> int:
                       "kernel_c_vs_a_ms": c_times,
                       "kernel_b_coarse2_vs_exact_ms": b2_times,
                       "table_build_ms": build_ms, "resize_paths": resize,
-                      "resample_precision": precision, "split": split}))
+                      "resample_precision": precision, "split": split,
+                      "phase_seconds": phase_s}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

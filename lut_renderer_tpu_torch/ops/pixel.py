@@ -3,7 +3,8 @@ chroma resampling, YUV<->RGB and dithered quantisation.
 
 Counterpart of lut_renderer_tpu/ops/pixel.py, op for op, so that float
 results round the same way and integer planes come out bit-equal. The
-matrix math is colorcore.matrices itself, called with ``xp=torch``.
+matrix math is colorcore.matrices' formulas op for op, each division by a
+constant through ``fdiv``, so that the card rounds as the CPU and NumPy do.
 
 These run as plain tensor ops on either device: they are the glue the JAX
 package leaves to XLA. The fused kernel (ops.fused420) does the same work
@@ -22,15 +23,42 @@ from ..colorcore.dither import bayer_offsets
 _U32 = 0xFFFFFFFF
 
 
+def fdiv(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded once in f32, as NumPy divides an f32 array by a Python
+    float, on every device. The divisor is a tensor on x's device: PyTorch's
+    CUDA division by a host scalar multiplies by its reciprocal instead,
+    which moves a value on a rounding tie by an ulp (a 10-bit plane that
+    goes to 8 bits lands on k + 0.5 for a quarter of its codes)."""
+    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
+
+
 def yuv_planes_to_rgb(y, u, v, matrix: str = "bt709", depth: int = 8,
                       full_range: bool = False):
-    """YUV code-value planes (co-sited, full resolution) -> RGB in [0, 1]."""
-    return cm.yuv_to_rgb_planes(y, u, v, matrix, depth, full_range, xp=torch)
+    """YUV code-value planes (co-sited, full resolution) -> RGB in [0, 1]:
+    colorcore.matrices.yuv_to_rgb_planes op for op, dividing through
+    fdiv."""
+    kr, kg, kb, crv, cbu = cm.yuv_rgb_coeffs(matrix)
+    y_off, y_scale, c_mid, c_scale = cm._range_params(depth, full_range)
+    yn = fdiv(y - y_off, y_scale)
+    un = fdiv(u - c_mid, c_scale)
+    vn = fdiv(v - c_mid, c_scale)
+    r = yn + crv * vn
+    b = yn + cbu * un
+    g = yn - (kr * crv / kg) * vn - (kb * cbu / kg) * un
+    return (torch.clip(r, 0.0, 1.0), torch.clip(g, 0.0, 1.0),
+            torch.clip(b, 0.0, 1.0))
 
 
 def rgb_to_yuv_planes(r, g, b, matrix: str = "bt709", depth: int = 8,
                       full_range: bool = False):
-    return cm.rgb_to_yuv_planes(r, g, b, matrix, depth, full_range, xp=torch)
+    """colorcore.matrices.rgb_to_yuv_planes op for op, dividing through
+    fdiv: float code values, unquantised."""
+    kr, kg, kb, crv, cbu = cm.yuv_rgb_coeffs(matrix)
+    y_off, y_scale, c_mid, c_scale = cm._range_params(depth, full_range)
+    yn = kr * r + kg * g + kb * b
+    vn = fdiv(r - yn, crv)
+    un = fdiv(b - yn, cbu)
+    return yn * y_scale + y_off, un * c_scale + c_mid, vn * c_scale + c_mid
 
 
 def range_normalize(y, u, v, depth: int, in_full: bool, out_full: bool):

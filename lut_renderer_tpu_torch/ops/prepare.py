@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
+from .pixel import fdiv
 
 COARSE2_TIERS = ("coarse2", "coarse2f", "coarse2x",
                  "coarse2_tri", "coarse2f_tri", "coarse2x_tri")
@@ -106,13 +107,6 @@ class LutTable:
 # the coarse + residual decomposition (JAX ops/prepare.py:292-387, 737-762)
 # ---------------------------------------------------------------------------
 
-def _fdiv(x: torch.Tensor, c: float) -> torch.Tensor:
-    """x / c rounded once in f32, as NumPy divides an f32 array by a
-    Python float. The divisor is a tensor on x's device: PyTorch's CUDA
-    division by a host scalar multiplies by its reciprocal instead."""
-    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
-
-
 def upsample2_linear(c: torch.Tensor) -> torch.Tensor:
     """Separable linear upsample of an (M, M, M, C) grid to (2M-1, ...):
     even fine samples are the coarse points, odd ones the axis midpoints,
@@ -142,7 +136,7 @@ def _rows_absmax(x: torch.Tensor) -> torch.Tensor:
 def _int8_rows(x: torch.Tensor):
     """Per-row symmetric int8 of x: (q, s) with s = rowmax / 127 (JAX
     _int8_single and the first plane of _int8_pair)."""
-    s = _fdiv(_rows_absmax(x), 127.0)
+    s = fdiv(_rows_absmax(x), 127.0)
     safe = torch.where(s > 0, s, torch.ones_like(s))
     q = torch.clamp(torch.round(x / safe), -127, 127).to(torch.int8)
     return q, s
@@ -177,8 +171,8 @@ def _coarse_dequant(c: torch.Tensor, mode: str) -> torch.Tensor:
     # and unfolded again, as _unfolded_pair_scales hands them to the kernel
     q1, s1 = _int8_rows(detr)
     q2, s2 = _int8_rows(detr - s1 * q1.to(torch.float32))
-    s1u = _fdiv(s1, 254.0) * 254.0
-    s2u = _fdiv(s2, 254.0) * 254.0
+    s1u = fdiv(s1, 254.0) * 254.0
+    s2u = fdiv(s2, 254.0) * 254.0
     return q1.to(torch.float32) * s1u + q2.to(torch.float32) * s2u
 
 
@@ -254,7 +248,7 @@ class Coarse2Table:
                              f"(odd N >= 49)")
         c = table[::2, ::2, ::2].contiguous()
         q, s = _int8_rows(table - upsample2_linear(c))
-        scale = _fdiv(s, 127.0) * 127.0  # stored folded, unfolded at launch
+        scale = fdiv(s, 127.0) * 127.0  # stored folded, unfolded at launch
         coarse = _coarse_dequant(c, tier.removesuffix("_tri"))
         coarse = coarse + _identity_grid(c.shape[0], c.device)
         return cls(coarse=_pad4(coarse), resid=_pad4(q),

@@ -69,6 +69,30 @@ def yuv_frames(seed: int, b: int, h: int, w: int, depth: int = 8,
     return ys, us, vs
 
 
+def device_frames(seed: int, b: int, h: int, w: int, depth: int, in_sub: str,
+                  dev):
+    """yuv_frames' kind of frames (moving ramps plus noise), made on `dev`
+    from a torch generator and returned as host numpy planes: at 4K and 8K
+    NumPy's generation would take longer than the runs it feeds."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hi = (1 << depth) - 1
+    dt = torch.int16 if depth > 8 else torch.uint8
+    hc, wc = _chroma_shape(h, w, in_sub)
+    shift = 0.03 * torch.arange(b, device=dev, dtype=torch.float32)
+
+    def plane(hh, ww, fx, fy, i0):
+        ramp = (torch.linspace(0, fx, ww, device=dev)[None, :]
+                + torch.linspace(0, fy, hh, device=dev)[:, None])
+        noise = torch.randint(0, 8, (b, hh, ww), generator=g, device=dev,
+                              dtype=torch.float32)
+        x = (ramp + (shift + 0.03 * i0)[:, None, None]) % 1.0 * hi + noise
+        out = x.clamp_(0, hi).to(dt).cpu().numpy()
+        return out.view(np.uint16) if depth > 8 else out
+
+    return plane(h, w, 0.7, 0.3, 0), plane(hc, wc, 0.2, 0.6, 5), \
+        plane(hc, wc, 0.5, 0.1, 9)
+
+
 def uniform_frames(seed: int, b: int, h: int, w: int, depth: int = 8,
                    in_sub: str = "420"):
     """Seeded frames of uniform-random codes: neighbouring pixels fall in

@@ -468,3 +468,74 @@ def test_split_over_two_streams_is_bit_equal(cuda_device, resize):
                     split_fn(*to_torch(y, u, v))):  # from the host
             for a, e in zip(got, whole):
                 assert a.device == e.device and torch.equal(a, e)
+
+
+# ---- BASELINE configurations at their published sizes ---------------------
+
+def _baseline(prefix):
+    from lut_renderer_tpu_torch.probes.baseline import baseline_stages
+
+    (st,) = [s for s in baseline_stages() if s.name.startswith(prefix)]
+    return st
+
+
+def test_kernel_b_4k_422p10_master(cuda_device):
+    """Pro stage 1 at its size: 3840x2160 422p10 -> 422p10 (the policy's
+    RenderConfig) on kernel B, against its plain twin."""
+    from lut_renderer_tpu_torch.probes.harness import yuv_frames
+
+    st = _baseline("3 pro stage 1")
+    assert (st.cfg.in_subsampling, st.cfg.out_subsampling,
+            st.cfg.in_depth, st.cfg.out_depth) == ("422", "422", 10, 10)
+    y, u, v = to_torch(*yuv_frames(21, 1, 2160, 3840, 10, "422"),
+                       device=cuda_device)
+    lut = LutTable.from_lut3d(random_lut(33, seed=21), cuda_device)
+    before = fused420.launches
+    got = fused420.render_fused420(y, u, v, lut, st.cfg)
+    torch.cuda.synchronize()
+    assert fused420.launches == before + 1
+    assert got[0].dtype == torch.uint16
+    assert [tuple(p.shape) for p in got] == [(1, 2160, 3840),
+                                             (1, 2160, 1920),
+                                             (1, 2160, 1920)]
+    want = fused420.render_fused420_reference(y, u, v, lut, st.cfg)
+    assert_integer_contract(got, want, "4K 422p10 master")
+
+
+def test_8k_420p10_one_frame_batch_through_render_batches(cuda_device):
+    """Config 5: the executor's batch at 8K is one frame; the device loop
+    (pinned uint16 staging both ways) renders it on kernel B, against the
+    plain twin on the same planes."""
+    from lut_renderer_tpu_torch.engine.executor import _pick_batch_size
+    from lut_renderer_tpu_torch.probes.harness import yuv_frames
+
+    st = _baseline("5 8K")
+    assert _pick_batch_size(7680, 4320) == 1
+    assert (st.cfg.in_depth, st.cfg.out_depth) == (10, 10)
+    frames = yuv_frames(22, 1, 4320, 7680, 10)
+    lut = random_lut(33, seed=22)
+    before = fused420.launches
+    (out,) = list(render_batches(iter([(*frames, 1)]),
+                                 make_render_fn(lut, st.cfg, cuda_device),
+                                 cuda_device))
+    assert fused420.launches == before + 1
+    assert out[3] == 1 and out[0].dtype == np.uint16
+    want = fused420.render_fused420_reference(
+        *to_torch(*frames, device=cuda_device),
+        LutTable.from_lut3d(lut, cuda_device), st.cfg)
+    assert_integer_contract(out[:3], want, "8K 420p10 batch of 1")
+
+
+def test_plain_layout_rounds_ties_as_the_cpu(cuda_device):
+    """Pro stage 2's function (422p10 -> 420p8, no LUT, no dither): a
+    quarter of the luma codes land on an exact rounding tie, and the
+    card's plain layout rounds them as the CPU does (ops.pixel.fdiv)."""
+    from lut_renderer_tpu_torch.probes.harness import yuv_frames
+
+    st = _baseline("3 pro stage 2")
+    frames = yuv_frames(23, 2, 216, 384, 10, "422")
+    got = make_render_fn(None, st.cfg, cuda_device)(
+        *to_torch(*frames, device=cuda_device))
+    want = make_render_fn(None, st.cfg, "cpu")(*to_torch(*frames))
+    for a, e in zip(got, want):
+        assert torch.equal(a.cpu(), e)

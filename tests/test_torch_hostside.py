@@ -59,6 +59,7 @@ COPIES = (
     "plan/__init__.py", "plan/policy.py", "plan/pipeline.py",
     "hostio/__init__.py", "hostio/ffi.py", "hostio/probe.py",
     "hostio/decode.py", "hostio/encode.py", "hostio/audio.py",
+    "hostio/oracle.py",
     "app/settings.py", "app/lut_history.py", "app/naming.py",
     "app/estimate.py", "app/defaults.py", "app/taskfactory.py",
     "app/presets.py", "app/monitor.py", "app/termio.py",

@@ -65,14 +65,17 @@ def test_port_modules_import_no_jax():
             "lut_renderer_tpu_torch.app.tui",
             "lut_renderer_tpu_torch.app.help",
             "lut_renderer_tpu_torch.app.icon",
-            "lut_renderer_tpu_torch.app.thumbnails"} <= set(mods)
+            "lut_renderer_tpu_torch.app.thumbnails",
+            "lut_renderer_tpu_torch.hostio.oracle",
+            "lut_renderer_tpu_torch.probes.baseline"} <= set(mods)
     smoke = sorted({m for m in _imported(REPO / "chip_smoke.py")
                     if m.startswith("lut_renderer_tpu_torch")})
     assert "lut_renderer_tpu_torch.hostio.decode" in smoke
     assert {"lut_renderer_tpu_torch.ops.resample",
             "lut_renderer_tpu_torch.parallel",
             "lut_renderer_tpu_torch.app.server",
-            "lut_renderer_tpu_torch.engine.warmup"} <= set(smoke)
+            "lut_renderer_tpu_torch.engine.warmup",
+            "lut_renderer_tpu_torch.probes.baseline"} <= set(smoke)
     _fresh("import importlib, sys\n"
            f"for m in {mods + smoke + ['chip_smoke']!r}:\n"
            "    importlib.import_module(m)\n")
@@ -83,6 +86,22 @@ def test_port_modules_import_no_jax():
 def test_sources_import_nothing_of_jax_or_the_jax_package(path):
     bad = sorted(m for m in _imported(path) if _forbidden(m))
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_main_path_leaves_the_oracle_unloaded():
+    """hostio.oracle is a test oracle: chip_smoke.py, the CLI and the
+    executor import without it, so that no path of the card's machine,
+    whose opencv carries no FFmpeg libraries, reaches it."""
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke\n"
+         "import lut_renderer_tpu_torch.app.cli\n"
+         "import lut_renderer_tpu_torch.engine.executor\n"
+         "assert 'lut_renderer_tpu_torch.hostio.oracle' not in sys.modules\n"
+         "print('ok')"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.startswith("ok"), \
+        res.stderr[-2000:]
 
 
 def test_crf_job_builds_its_spec_without_jax():

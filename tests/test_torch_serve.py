@@ -7,6 +7,7 @@ the TUI session, and the CLI's serve/client/resume/luts/probe/thumb/icon/
 help subcommands."""
 
 import json
+import re
 import threading
 import time
 import urllib.error
@@ -307,9 +308,19 @@ def test_tui_session_add_lut_start(tmp_path, media):
 
 # ---- CLI ------------------------------------------------------------------
 
-def _client(sock, req, capsys):
+# what the serve thread prints ("lut-torch serve: stopped") can land in
+# the same captured stdout as the client's JSON reply, before or after it
+SERVE_LINE = re.compile(r"lut-torch serve: [^\n{]*")
+
+
+def _client(sock, req, capsys, served=None):
+    """The client's exit code and JSON reply; the serve thread's own lines
+    in the same capture are set aside into `served`."""
     rc = cli.main(["client", json.dumps(req), "--socket", str(sock)])
-    return rc, json.loads(capsys.readouterr().out)
+    out = capsys.readouterr().out
+    if served is not None:
+        served.extend(SERVE_LINE.findall(out))
+    return rc, json.loads(SERVE_LINE.sub("", out))
 
 
 def test_cli_serve_warmup_client_shutdown(tmp_path, capsys):
@@ -329,11 +340,12 @@ def test_cli_serve_warmup_client_shutdown(tmp_path, capsys):
     assert rc == 0 and resp["tasks"] == []
     rc, resp = _client(sock, {"op": "nope"}, capsys)
     assert rc == 1 and not resp["ok"]
-    rc, resp = _client(sock, {"op": "shutdown"}, capsys)
+    served = []
+    rc, resp = _client(sock, {"op": "shutdown"}, capsys, served)
     assert rc == 0
     t.join(timeout=60)
     assert not t.is_alive() and rcs == [0]
-    assert "serve: stopped" in capsys.readouterr().out
+    assert "serve: stopped" in "\n".join(served) + capsys.readouterr().out
     assert cli.main(["client", "{bad", "--socket", str(sock)]) == 2
     assert cli.main(["client", "{}", "--socket", str(sock)]) == 2  # gone
 
