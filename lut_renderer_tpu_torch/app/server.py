@@ -14,7 +14,9 @@ Protocol: JSON lines (one request object per line, one response per line).
    "master_dir": "..."}                -> {"ok": true, "task_ids": [...],
                                            "logs": [...], "warnings": [...]}
   {"op": "status"}                     -> {"ok": true, "tasks": [...],
-                                           "queue_progress": N}
+                                           "queue_progress": N,
+                                           "lut_cache": {"hits", "misses",
+                                           "evictions", "entries"}}
   {"op": "status", "task_id": "..."}   -> single-task view incl. "logs":
                                           the runtime log tail (policy
                                           decision notes, stage progress,
@@ -43,6 +45,7 @@ from typing import Optional
 
 from ..models import ProcessingParams
 from ..tasks import TaskManager
+from ..tasks.runner import lut_cache_stats
 from .defaults import mode_template
 from .taskfactory import create_tasks
 
@@ -275,7 +278,8 @@ class QueueServer:
         views = [_task_view(t) for t in tasks.values()]
         agg = (sum(t.progress for t in tasks.values()) // len(tasks)
                if tasks else 0)
-        return {"ok": True, "tasks": views, "queue_progress": agg}
+        return {"ok": True, "tasks": views, "queue_progress": agg,
+                "lut_cache": lut_cache_stats()}
 
     # -- socket plumbing -------------------------------------------------------
     def start(self) -> None:

@@ -27,6 +27,7 @@ runs: exact, or the requested coarse2 tier).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -45,6 +46,8 @@ from ..plan.policy import RenderSpec
 from ..device import DeviceLike, resolve_device
 from ..ops.render import lut_tier, make_render_fn
 from ..parallel import default_mesh, make_sharded_render_fn
+from ..spans import begin as begin_spans
+from ..spans import span, write_jsonl as write_spans
 from .config import (
     derive_encoder_settings,
     derive_render_config,
@@ -62,11 +65,22 @@ HostBatch = Tuple[np.ndarray, np.ndarray, np.ndarray, int]
 
 @dataclass
 class StageStats:
+    """A stage's counters. The seconds are sums of its spans
+    (``spans.span``): the decode loop's and each encoded batch's, and per
+    batch of the device loop: take (the next host batch), stage (pageable
+    -> pinned and the copy in), render (the render call), out (the pinned
+    outputs and the copy out) and wait (for the previous batch's copy
+    out)."""
+
     frames_in: int = 0
     frames_out: int = 0
     wall_s: float = 0.0
     decode_s: float = 0.0
+    take_s: float = 0.0
+    stage_s: float = 0.0
     render_s: float = 0.0
+    out_s: float = 0.0
+    wait_s: float = 0.0
     encode_s: float = 0.0
     batches: int = 0
 
@@ -74,12 +88,18 @@ class StageStats:
         def rate(n, t):
             return f"{n / t:.1f} fps" if t > 0 else "n/a"
 
+        loop_s = self.stage_s + self.render_s + self.out_s + self.wait_s
+        steps = ", ".join(
+            f"{k} {getattr(self, k + '_s') / self.batches * 1e3:.2f}"
+            for k in ("take", "stage", "render", "out", "wait")
+        ) if self.batches else "n/a"
         return (
             f"{self.frames_out} frames in {self.wall_s:.2f}s "
             f"({rate(self.frames_out, self.wall_s)} overall; "
             f"decode {rate(self.frames_in, self.decode_s)}, "
-            f"render {rate(self.frames_out, self.render_s)}, "
-            f"encode {rate(self.frames_out, self.encode_s)})"
+            f"device loop {rate(self.frames_out, loop_s)}, "
+            f"encode {rate(self.frames_out, self.encode_s)}); "
+            f"ms a batch: {steps}"
         )
 
 
@@ -114,56 +134,104 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
                    stats: Optional[StageStats] = None) -> Iterator[HostBatch]:
     """Run `render_fn` over host batches on `device`, yielding numpy
     outputs in order. On CUDA one batch stays in flight; the yielded
-    arrays live in pinned buffers and stay valid while referenced."""
-    stats = stats if stats is not None else StageStats()
-    if device.type != "cuda":
-        for y, u, v, count in batches:
-            t0 = time.perf_counter()
-            outs = render_fn(*(torch.from_numpy(a) for a in (y, u, v)))
-            res = tuple(o.numpy() for o in outs)
-            stats.render_s += time.perf_counter() - t0
-            stats.batches += 1
-            yield (*res, count)
-        return
+    arrays live in pinned buffers and stay valid while referenced.
 
-    compute = torch.cuda.current_stream(device)
-    h2d = torch.cuda.Stream(device)
-    d2h = torch.cuda.Stream(device)
-    in_flight = None  # (pinned outputs, done event, count)
-    for y, u, v, count in batches:
-        t0 = time.perf_counter()
-        staged = [torch.from_numpy(a).pin_memory() for a in (y, u, v)]
-        with torch.cuda.stream(h2d):
-            planes = [s.to(device, non_blocking=True) for s in staged]
-        compute.wait_stream(h2d)
-        for p in planes:
-            p.record_stream(compute)
-        outs = render_fn(*planes)
-        rendered = torch.cuda.Event()
-        rendered.record(compute)
-        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                for o in outs]
-        with torch.cuda.stream(d2h):
-            d2h.wait_event(rendered)
-            for h, o in zip(host, outs):
-                o.record_stream(d2h)
-                h.copy_(o, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(d2h)
-        prev, in_flight = in_flight, (host, done, count)
-        if prev is not None:
-            prev[1].synchronize()
-            stats.render_s += time.perf_counter() - t0
+    Spans (``spans``), whose seconds add up in `stats`: ``executor.run``
+    over the call (attribute ``first_yield_ns``: its first output, ns
+    after its start), and per batch (attribute ``batch``)
+    ``executor.take``, ``executor.stage``, ``executor.render``,
+    ``executor.out`` and ``executor.wait``; the CPU takes and renders."""
+    stats = stats if stats is not None else StageStats()
+    source = iter(batches)
+    with span("executor.run") as run:
+        if device.type != "cuda":
+            for i in itertools.count():
+                with span("executor.take", run, batch=i) as sp:
+                    item = next(source, None)
+                stats.take_s += sp.seconds
+                if item is None:
+                    return
+                y, u, v, count = item
+                with span("executor.render", run, batch=i) as sp:
+                    outs = render_fn(*(torch.from_numpy(a) for a in (y, u, v)))
+                    res = tuple(o.numpy() for o in outs)
+                stats.render_s += sp.seconds
+                stats.batches += 1
+                run.mark("first_yield_ns")
+                yield (*res, count)
+
+        compute = torch.cuda.current_stream(device)
+        h2d = torch.cuda.Stream(device)
+        d2h = torch.cuda.Stream(device)
+
+        def finish(batch) -> HostBatch:
+            host, done, count, i = batch
+            with span("executor.wait", run, batch=i) as sp:
+                done.synchronize()
+            stats.wait_s += sp.seconds
             stats.batches += 1
-            yield (*(h.numpy() for h in prev[0]), prev[2])
-        else:
-            stats.render_s += time.perf_counter() - t0
-    if in_flight is not None:
-        t0 = time.perf_counter()
-        in_flight[1].synchronize()
-        stats.render_s += time.perf_counter() - t0
-        stats.batches += 1
-        yield (*(h.numpy() for h in in_flight[0]), in_flight[2])
+            run.mark("first_yield_ns")
+            return (*(h.numpy() for h in host), count)
+
+        in_flight = None  # (pinned outputs, done event, count, batch index)
+        for i in itertools.count():
+            with span("executor.take", run, batch=i) as sp:
+                item = next(source, None)
+            stats.take_s += sp.seconds
+            if item is None:
+                break
+            y, u, v, count = item
+            with span("executor.stage", run, batch=i) as sp:
+                staged = [torch.from_numpy(a).pin_memory() for a in (y, u, v)]
+                with torch.cuda.stream(h2d):
+                    planes = [s.to(device, non_blocking=True) for s in staged]
+                compute.wait_stream(h2d)
+                for p in planes:
+                    p.record_stream(compute)
+            stats.stage_s += sp.seconds
+            with span("executor.render", run, batch=i) as sp:
+                outs = render_fn(*planes)
+                rendered = torch.cuda.Event()
+                rendered.record(compute)
+            stats.render_s += sp.seconds
+            with span("executor.out", run, batch=i) as sp:
+                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                        for o in outs]
+                with torch.cuda.stream(d2h):
+                    d2h.wait_event(rendered)
+                    for h, o in zip(host, outs):
+                        o.record_stream(d2h)
+                        h.copy_(o, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(d2h)
+            stats.out_s += sp.seconds
+            prev, in_flight = in_flight, (host, done, count, i)
+            if prev is not None:
+                yield finish(prev)
+        if in_flight is not None:
+            yield finish(in_flight)
+
+
+def _export_profile(prof, profile_dir: Path, log) -> None:
+    """Stop `prof`, write its chrome trace and the spans it saw into
+    `profile_dir`. A diagnostic: a failure is logged, not raised."""
+    try:
+        prof.stop()
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        trace = profile_dir / "render_trace.json"
+        prof.export_chrome_trace(str(trace))
+    except Exception as exc:
+        log(f"engine: profiler trace not written: {exc}")
+        return
+    try:
+        n = write_spans(profile_dir / "spans.jsonl", prof, trace)
+    except Exception as exc:
+        log(f"engine: spans not written: {exc}")
+        return
+    if n:
+        log(f"engine: {n} spans -> {profile_dir / 'spans.jsonl'}")
+    else:
+        log("engine: no spans recorded; spans.jsonl not written")
 
 
 def run_stage(
@@ -281,31 +349,31 @@ def run_stage(
         enc_error: list = []
 
         def decode_loop():
-            t0 = time.perf_counter()
             ys, us, vs = [], [], []
-            try:
-                for frame in sched.schedule(iter(dec)):
-                    if cancel.is_set():
-                        break
-                    stats.frames_in += 1
-                    ys.append(frame.y)
-                    us.append(frame.u)
-                    vs.append(frame.v)
-                    if len(ys) == bsz:
+            with span("executor.decode") as sp:
+                try:
+                    for frame in sched.schedule(iter(dec)):
+                        if cancel.is_set():
+                            break
+                        stats.frames_in += 1
+                        ys.append(frame.y)
+                        us.append(frame.u)
+                        vs.append(frame.v)
+                        if len(ys) == bsz:
+                            batch_q.put(("batch", np.stack(ys), np.stack(us),
+                                         np.stack(vs), bsz))
+                            ys, us, vs = [], [], []
+                    if ys and not cancel.is_set():
+                        count = len(ys)
+                        while len(ys) < bsz:  # pad to the batch shape
+                            ys.append(ys[-1]); us.append(us[-1])
+                            vs.append(vs[-1])
                         batch_q.put(("batch", np.stack(ys), np.stack(us),
-                                     np.stack(vs), bsz))
-                        ys, us, vs = [], [], []
-                if ys and not cancel.is_set():
-                    count = len(ys)
-                    while len(ys) < bsz:  # pad to the batch shape
-                        ys.append(ys[-1]); us.append(us[-1]); vs.append(vs[-1])
-                    batch_q.put(("batch", np.stack(ys), np.stack(us),
-                                 np.stack(vs), count))
-                batch_q.put(("eof", None, None, None, 0))
-            except Exception as exc:  # propagated by the render loop
-                batch_q.put(("error", exc, None, None, 0))
-            finally:
-                stats.decode_s += time.perf_counter() - t0
+                                     np.stack(vs), count))
+                    batch_q.put(("eof", None, None, None, 0))
+                except Exception as exc:  # propagated by the render loop
+                    batch_q.put(("error", exc, None, None, 0))
+            stats.decode_s += sp.seconds
 
         host_ed = cfg.dither == "error_diffusion_host"
         if host_ed:
@@ -326,23 +394,34 @@ def run_stage(
                 if item is None:
                     return
                 yq, uq, vq, count = item
-                t0 = time.perf_counter()
-                try:
-                    for i in range(count):
-                        if host_ed:
-                            enc.write(_finish(yq[i]), _finish(uq[i]),
-                                      _finish(vq[i]))
-                        else:
-                            enc.write(yq[i], uq[i], vq[i])
-                        stats.frames_out += 1
-                        if total_est:
-                            progress(min(99, int(100 * stats.frames_out
-                                                 / total_est)))
-                except Exception as exc:
-                    enc_error.append(exc)
+                with span("executor.encode") as sp:
+                    try:
+                        for i in range(count):
+                            if host_ed:
+                                enc.write(_finish(yq[i]), _finish(uq[i]),
+                                          _finish(vq[i]))
+                            else:
+                                enc.write(yq[i], uq[i], vq[i])
+                            stats.frames_out += 1
+                            if total_est:
+                                progress(min(99, int(100 * stats.frames_out
+                                                     / total_est)))
+                    except Exception as exc:
+                        enc_error.append(exc)
+                stats.encode_s += sp.seconds
+                if enc_error:
                     return
-                finally:
-                    stats.encode_s += time.perf_counter() - t0
+
+        prof = None
+        if profile_dir:
+            # device-level trace of the stage's loops, and their spans
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            begin_spans()
+            log(f"engine: torch profiler trace -> {profile_dir}")
 
         dec_thread = threading.Thread(target=decode_loop, daemon=True)
         enc_thread = threading.Thread(target=encode_loop, daemon=True)
@@ -373,16 +452,6 @@ def run_stage(
                     return
                 yield a, b, c, count
 
-        prof = None
-        if profile_dir:
-            # device-level trace of the render loop
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if dev.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.start()
-            log(f"engine: torch profiler trace -> {profile_dir}")
-
         try:
             for out in render_batches(host_batches(), render_fn, dev, stats):
                 if cancel.is_set():
@@ -394,11 +463,6 @@ def run_stage(
         except Exception as exc:
             error = f"render failed: {exc}"
         finally:
-            if prof is not None:
-                prof.stop()
-                Path(profile_dir).mkdir(parents=True, exist_ok=True)
-                prof.export_chrome_trace(
-                    str(Path(profile_dir) / "render_trace.json"))
             cancel_set = cancel.is_set()
             if cancel_set or error:
                 cancel.set()
@@ -425,6 +489,8 @@ def run_stage(
                             pass
             enc_thread.join(timeout=60)
             dec.close()
+            if prof is not None:  # after the loops, so it holds their spans
+                _export_profile(prof, Path(profile_dir), log)
 
         if enc_error and not error:
             error = f"encode failed: {enc_error[0]}"

@@ -20,6 +20,7 @@ from ..plan import build_pipeline, build_render_spec
 
 from ..engine.executor import run_stage
 from ..ops.prepare import LutTable
+from ..spans import span
 from .signals import Signal
 
 _LUT_CACHE: Dict[Tuple[str, int, str], LutTable] = {}
@@ -27,23 +28,44 @@ _LUT_CACHE_LOCK = threading.Lock()
 # a warm daemon switching between a handful of looks shouldn't re-parse
 # and re-upload the table on every task
 _LUT_CACHE_MAX = 4
+# loads served from the cache, loads that parsed and uploaded, and tables
+# the LRU let go, since the process started (the server's status reply)
+lut_hits = 0
+lut_misses = 0
+lut_evictions = 0
 
 
 def load_lut_table(path: Path, device) -> LutTable:
     """Parse a .cube and upload it to `device`, cached by (path, mtime,
-    device); small LRU."""
+    device); small LRU. One span, ``runner.lut_load``, with attributes
+    ``hit`` and ``size``."""
+    global lut_hits, lut_misses, lut_evictions
     from ..colorcore import parse_cube_file
 
-    path = Path(path)
-    key = (str(path.resolve()), path.stat().st_mtime_ns, str(device))
+    with span("runner.lut_load") as sp:
+        path = Path(path)
+        key = (str(path.resolve()), path.stat().st_mtime_ns, str(device))
+        with _LUT_CACHE_LOCK:
+            lut = _LUT_CACHE.pop(key, None)
+            hit = lut is not None
+            if hit:
+                lut_hits += 1
+            else:
+                lut_misses += 1
+                lut = LutTable.from_lut3d(parse_cube_file(path), device)
+                while len(_LUT_CACHE) >= _LUT_CACHE_MAX:
+                    _LUT_CACHE.pop(next(iter(_LUT_CACHE)))
+                    lut_evictions += 1
+            _LUT_CACHE[key] = lut  # (re-)insert at MRU position
+        sp.attrs.update(hit=hit, size=lut.size)
+    return lut
+
+
+def lut_cache_stats() -> dict:
+    """The LUT cache's counters and the tables it holds."""
     with _LUT_CACHE_LOCK:
-        lut = _LUT_CACHE.pop(key, None)
-        if lut is None:
-            lut = LutTable.from_lut3d(parse_cube_file(path), device)
-            while len(_LUT_CACHE) >= _LUT_CACHE_MAX:
-                _LUT_CACHE.pop(next(iter(_LUT_CACHE)))
-        _LUT_CACHE[key] = lut  # (re-)insert at MRU position
-        return lut
+        return {"hits": lut_hits, "misses": lut_misses,
+                "evictions": lut_evictions, "entries": len(_LUT_CACHE)}
 
 
 def extract_cover(source: Path, dest: Path) -> None:

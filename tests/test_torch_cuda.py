@@ -539,3 +539,45 @@ def test_plain_layout_rounds_ties_as_the_cpu(cuda_device):
     want = make_render_fn(None, st.cfg, "cpu")(*to_torch(*frames))
     for a, e in zip(got, want):
         assert torch.equal(a.cpu(), e)
+
+
+def test_render_batches_spans_on_card(cuda_device):
+    """Under a profiler that traces the card, the device loop records each
+    step of each batch under its call, and the anchor of its spans stays
+    on the host: no device-side event carries a span's or the anchor's
+    name, which would count as device work."""
+    import torch.autograd.profiler as autograd_profiler
+    from torch.autograd import DeviceType
+
+    from lut_renderer_tpu_torch import spans
+
+    fn = make_render_fn(random_lut(17, seed=5), RenderConfig(), cuda_device)
+    batches = [(*planes(s, 2, 32, 96, 8), 2) for s in range(3)]
+    warm = list(render_batches(iter(batches), fn, cuda_device))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    assert autograd_profiler._is_profiler_enabled is True
+    got = list(render_batches(iter(batches), fn, cuda_device))
+    torch.cuda.synchronize()
+    prof.stop()
+    for g, w in zip(got, warm):
+        assert all(np.array_equal(a, b) for a, b in zip(g[:3], w[:3]))
+    recs = spans.records()
+    (run,) = [r for r in recs if r.name == "executor.run"]
+    for step in ("take", "stage", "render", "out", "wait"):
+        mine = [r for r in recs if r.name == f"executor.{step}"]
+        assert [r.attrs["batch"] for r in mine] == list(
+            range(4 if step == "take" else 3)), step
+        assert all(r.parent == r.call == run.id for r in mine)
+    events = prof.profiler.kineto_results.events()
+    on_card = {ev.name() for ev in events
+               if ev.device_type() == DeviceType.CUDA}
+    assert any("fused420_kernel" in n for n in on_card)
+    assert not [n for n in on_card
+                if n == spans.ANCHOR or n.startswith(("executor.", "runner."))]
+    ranges = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                    for ev in events if ev.name() == spans.ANCHOR)
+    offset, half = spans.clock_offset_ns(ranges)
+    assert half < 50_000
