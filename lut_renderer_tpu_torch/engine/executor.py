@@ -6,10 +6,12 @@ Counterpart of lut_renderer_tpu/engine/executor.py:
 
 ``render_batches`` is the device loop on its own: host batches of integer
 planes in, quantised host planes out. ``run_stage`` wraps it with the
-hostio decoder and encoder. On a CUDA device the loop keeps one batch in
-flight: batch N+1 is copied in (pinned staging, non-blocking, on a copy
-stream) and rendered before the host waits for batch N's copy out, which
-runs on its own stream after an event that marks the end of the render.
+hostio decoder and encoder. On a CUDA device a staging thread takes the
+host batches and copies each in (pageable -> pinned, then non-blocking on
+a copy stream), one batch ahead of the loop; the loop keeps one batch in
+flight: batch N+1 is rendered before the host waits for batch N's copy
+out, which runs on its own stream after an event that marks the end of
+the render.
 
 With more than one card and ``device="cuda"`` (no index), the frame batch
 is split across the cards as the JAX executor shards it over its mesh
@@ -33,7 +35,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Iterable, Iterator, List, Optional, Tuple
+from typing import (Callable, Iterable, Iterator, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -68,9 +71,10 @@ class StageStats:
     """A stage's counters. The seconds are sums of its spans
     (``spans.span``): the decode loop's and each encoded batch's, and per
     batch of the device loop: take (the next host batch), stage (pageable
-    -> pinned and the copy in), render (the render call), out (the pinned
-    outputs and the copy out) and wait (for the previous batch's copy
-    out)."""
+    -> pinned and the copy in; on CUDA the staging thread's ``executor.pin``),
+    render (the render call), out (the pinned outputs and the copy out) and
+    wait (for the previous batch's copy out). `staged_ready` counts the
+    batches already staged when the loop asked for them."""
 
     frames_in: int = 0
     frames_out: int = 0
@@ -83,6 +87,7 @@ class StageStats:
     wait_s: float = 0.0
     encode_s: float = 0.0
     batches: int = 0
+    staged_ready: int = 0
 
     def summary(self) -> str:
         def rate(n, t):
@@ -99,6 +104,7 @@ class StageStats:
             f"decode {rate(self.frames_in, self.decode_s)}, "
             f"device loop {rate(self.frames_out, loop_s)}, "
             f"encode {rate(self.frames_out, self.encode_s)}); "
+            f"staged ahead {self.staged_ready}/{self.batches}; "
             f"ms a batch: {steps}"
         )
 
@@ -129,18 +135,110 @@ def stage_devices(device: DeviceLike = "cuda",
     return default_mesh() if use_mesh else [dev]
 
 
+# the staging thread's hand-off: `_END`, or a `_Failed` the loop raises
+_END = object()
+# seconds between a blocked hand-off's looks at its stop flag
+_HANDOFF_POLL_S = 0.05
+
+
+class _Failed(NamedTuple):
+    exc: BaseException
+
+
+def _put(handoff: "queue.Queue", item, stop: threading.Event) -> bool:
+    """Put `item` once there is room; False if `stop` is set first."""
+    while not stop.is_set():
+        try:
+            handoff.put(item, timeout=_HANDOFF_POLL_S)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _stage_loop(source: Iterator, stage, run, stats: StageStats,
+                handoff: "queue.Queue", stop: threading.Event) -> None:
+    """The staging thread: take each item of `source` (``executor.take``),
+    stage it (``executor.pin``) and hand it over, until the source ends or
+    fails or `stop` is set. It keeps nothing it handed over."""
+    try:
+        for i in itertools.count():
+            with span("executor.take", run, batch=i) as sp:
+                item = next(source, _END)
+            stats.take_s += sp.seconds
+            if item is _END or stop.is_set():
+                break
+            with span("executor.pin", run, batch=i) as sp:
+                staged = stage(item)
+            stats.stage_s += sp.seconds
+            del item
+            if not _put(handoff, staged, stop):
+                return
+            del staged
+    except BaseException as exc:  # raised on the loop's thread, in order
+        _put(handoff, _Failed(exc), stop)
+        return
+    _put(handoff, _END, stop)
+
+
+def stage_ahead(source: Iterable, stage, run=None,
+                stats: Optional[StageStats] = None
+                ) -> Iterator[Tuple[object, bool]]:
+    """``(stage(item), ready)`` for each item of `source`, in order:
+    `stage` runs on a thread of its own, one item ahead of the caller (at
+    most one staged item waits while the next is staged); `ready` is true
+    when the staged item was already waiting as the caller asked for it.
+    An exception of `source` or `stage` is raised here, after the items
+    before it. Closing the generator stops the thread at its next hand-off
+    or the source's next return, and does not wait for either. The
+    thread's spans (``executor.take``, ``executor.pin``, attribute
+    ``batch``) take `run` as their parent and add up in `stats`' take_s
+    and stage_s."""
+    stats = stats if stats is not None else StageStats()
+    handoff: "queue.Queue" = queue.Queue(maxsize=1)
+    stop = threading.Event()
+    threading.Thread(target=_stage_loop, name="executor.stage_ahead",
+                     args=(iter(source), stage, run, stats, handoff, stop),
+                     daemon=True).start()
+    try:
+        while True:
+            try:
+                got, ready = handoff.get_nowait(), True
+            except queue.Empty:
+                got, ready = handoff.get(), False
+            if got is _END:
+                return
+            if isinstance(got, _Failed):
+                raise got.exc
+            yield got, ready
+    finally:
+        stop.set()
+        try:  # a staged item left waiting
+            while True:
+                handoff.get_nowait()
+        except queue.Empty:
+            pass
+
+
 def render_batches(batches: Iterable[HostBatch], render_fn,
                    device: torch.device,
                    stats: Optional[StageStats] = None) -> Iterator[HostBatch]:
     """Run `render_fn` over host batches on `device`, yielding numpy
-    outputs in order. On CUDA one batch stays in flight; the yielded
-    arrays live in pinned buffers and stay valid while referenced.
+    outputs in order. On CUDA a staging thread copies each batch in, one
+    batch ahead (``stage_ahead``), and one batch stays in flight; the
+    yielded arrays live in pinned buffers and stay valid while referenced.
+    An exception of `batches` or of the staging is raised after the
+    batches before it are yielded.
 
     Spans (``spans``), whose seconds add up in `stats`: ``executor.run``
     over the call (attribute ``first_yield_ns``: its first output, ns
-    after its start), and per batch (attribute ``batch``)
-    ``executor.take``, ``executor.stage``, ``executor.render``,
-    ``executor.out`` and ``executor.wait``; the CPU takes and renders."""
+    after its start), and per batch (attribute ``batch``), on the loop's
+    thread, ``executor.stage`` (the next staged batch taken and its copy
+    in waited for on the device; attribute ``ready``: it was already
+    staged), ``executor.render``, ``executor.out`` and ``executor.wait``,
+    and on the staging thread ``executor.take`` and ``executor.pin`` (the
+    pageable -> pinned copy and the copy in enqueued); the CPU takes and
+    renders on the caller's thread."""
     stats = stats if stats is not None else StageStats()
     source = iter(batches)
     with span("executor.run") as run:
@@ -164,6 +262,15 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
         h2d = torch.cuda.Stream(device)
         d2h = torch.cuda.Stream(device)
 
+        def stage(item):
+            y, u, v, count = item
+            pinned = [torch.from_numpy(a).pin_memory() for a in (y, u, v)]
+            with torch.cuda.stream(h2d):
+                planes = [p.to(device, non_blocking=True) for p in pinned]
+                copied = torch.cuda.Event()
+                copied.record(h2d)
+            return planes, copied, count
+
         def finish(batch) -> HostBatch:
             host, done, count, i = batch
             with span("executor.wait", run, batch=i) as sp:
@@ -173,43 +280,50 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
             run.mark("first_yield_ns")
             return (*(h.numpy() for h in host), count)
 
+        staged = stage_ahead(source, stage, run, stats)
         in_flight = None  # (pinned outputs, done event, count, batch index)
-        for i in itertools.count():
-            with span("executor.take", run, batch=i) as sp:
-                item = next(source, None)
-            stats.take_s += sp.seconds
-            if item is None:
-                break
-            y, u, v, count = item
-            with span("executor.stage", run, batch=i) as sp:
-                staged = [torch.from_numpy(a).pin_memory() for a in (y, u, v)]
-                with torch.cuda.stream(h2d):
-                    planes = [s.to(device, non_blocking=True) for s in staged]
-                compute.wait_stream(h2d)
-                for p in planes:
-                    p.record_stream(compute)
-            stats.stage_s += sp.seconds
-            with span("executor.render", run, batch=i) as sp:
-                outs = render_fn(*planes)
-                rendered = torch.cuda.Event()
-                rendered.record(compute)
-            stats.render_s += sp.seconds
-            with span("executor.out", run, batch=i) as sp:
-                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                        for o in outs]
-                with torch.cuda.stream(d2h):
-                    d2h.wait_event(rendered)
-                    for h, o in zip(host, outs):
-                        o.record_stream(d2h)
-                        h.copy_(o, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record(d2h)
-            stats.out_s += sp.seconds
-            prev, in_flight = in_flight, (host, done, count, i)
-            if prev is not None:
-                yield finish(prev)
-        if in_flight is not None:
-            yield finish(in_flight)
+        failed = None
+        try:
+            for i in itertools.count():
+                with span("executor.stage", run, batch=i) as sp:
+                    try:
+                        got = next(staged, None)
+                    except Exception as exc:  # raised after the batches
+                        got, failed = None, exc
+                    if got is not None:
+                        (planes, copied, count), ready = got
+                        sp.attrs["ready"] = ready
+                        stats.staged_ready += ready
+                        compute.wait_event(copied)
+                        for p in planes:
+                            p.record_stream(compute)
+                if got is None:
+                    break
+                with span("executor.render", run, batch=i) as sp:
+                    outs = render_fn(*planes)
+                    rendered = torch.cuda.Event()
+                    rendered.record(compute)
+                stats.render_s += sp.seconds
+                with span("executor.out", run, batch=i) as sp:
+                    host = [torch.empty(o.shape, dtype=o.dtype,
+                                        pin_memory=True) for o in outs]
+                    with torch.cuda.stream(d2h):
+                        d2h.wait_event(rendered)
+                        for h, o in zip(host, outs):
+                            o.record_stream(d2h)
+                            h.copy_(o, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(d2h)
+                stats.out_s += sp.seconds
+                prev, in_flight = in_flight, (host, done, count, i)
+                if prev is not None:
+                    yield finish(prev)
+            if in_flight is not None:
+                yield finish(in_flight)
+            if failed is not None:
+                raise failed
+        finally:
+            staged.close()
 
 
 def _export_profile(prof, profile_dir: Path, log) -> None:
@@ -474,6 +588,10 @@ def run_stage(
                 except queue.Empty:
                     pass
                 dec_thread.join(timeout=0.5)
+            try:  # ends the source of a staging thread still waiting on it
+                batch_q.put_nowait(("eof", None, None, None, 0))
+            except queue.Full:
+                pass
             # retire the encode thread; only drop queued batches on failure
             while True:
                 try:

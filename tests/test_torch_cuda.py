@@ -168,6 +168,36 @@ def test_render_batches_on_card(cuda_device, layout, module, counter, n,
         assert all(isinstance(a, np.ndarray) for a in g[:3])
 
 
+@pytest.mark.parametrize("layout,split", [("auto", False), ("plain", False),
+                                          ("auto", True)])
+def test_render_batches_staged_ahead_keeps_every_output(cuda_device, layout,
+                                                        split):
+    """Through the staging thread, with a consumer that holds every output
+    and planes that differ in every batch: each output is bit-equal to the
+    same render function on that batch alone, and within the integer
+    contract of the CPU path; also with the batch split over two streams
+    of the card, staged through the first device as on several cards."""
+    from lut_renderer_tpu_torch.parallel import make_sharded_render_fn
+
+    lut = random_lut(17, seed=6)
+    cfg = RenderConfig(phase_layout=layout, dither="ordered")
+    batches = [(*planes(40 + s, 2, 32, 96, 8), 2 if s < 8 else 1)
+               for s in range(9)]
+    if split:
+        fn = make_sharded_render_fn(lut, cfg, [cuda_device, cuda_device])
+    else:
+        fn = make_render_fn(lut, cfg, cuda_device)
+    got = list(render_batches(iter(batches), fn, cuda_device))
+    assert [g[3] for g in got] == [b[3] for b in batches]
+    cpu_fn = make_render_fn(lut, replace(cfg, phase_layout="plain"), "cpu")
+    want = list(render_batches(iter(batches), cpu_fn, torch.device("cpu")))
+    for g, w, b in zip(got, want, batches):
+        alone = fn(*to_torch(*b[:3], device=cuda_device))
+        for a, e in zip(g[:3], alone):
+            assert np.array_equal(a, e.cpu().numpy())
+        assert_integer_contract(g[:3], w[:3], layout)
+
+
 _GEOMETRIES = {"420": dict(), "422": dict(out_subsampling="422"),
                "444": dict(in_subsampling="444", out_subsampling="444")}
 
@@ -566,11 +596,18 @@ def test_render_batches_spans_on_card(cuda_device):
         assert all(np.array_equal(a, b) for a, b in zip(g[:3], w[:3]))
     recs = spans.records()
     (run,) = [r for r in recs if r.name == "executor.run"]
-    for step in ("take", "stage", "render", "out", "wait"):
+    # the take and the stage step also find the end: a fourth span
+    for step, n in (("take", 4), ("pin", 3), ("stage", 4), ("render", 3),
+                    ("out", 3), ("wait", 3)):
         mine = [r for r in recs if r.name == f"executor.{step}"]
-        assert [r.attrs["batch"] for r in mine] == list(
-            range(4 if step == "take" else 3)), step
+        assert [r.attrs["batch"] for r in mine] == list(range(n)), step
         assert all(r.parent == r.call == run.id for r in mine)
+        # the staging thread takes and pins; the loop's thread the rest
+        on_loop = {r.thread == run.thread for r in mine}
+        assert on_loop == {step not in ("take", "pin")}, step
+    stages = [r for r in recs if r.name == "executor.stage"]
+    assert all(isinstance(r.attrs["ready"], bool) for r in stages[:3])
+    assert "ready" not in stages[3].attrs
     events = prof.profiler.kineto_results.events()
     on_card = {ev.name() for ev in events
                if ev.device_type() == DeviceType.CUDA}

@@ -263,10 +263,12 @@ def test_lut_cache_counters_and_hit_spans(monkeypatch, tmp_path):
 def test_stage_stats_summary_shows_the_split():
     stats = StageStats(frames_in=8, frames_out=8, wall_s=2.0, decode_s=0.5,
                        take_s=0.004, stage_s=0.04, render_s=0.02,
-                       out_s=0.008, wait_s=0.132, encode_s=1.0, batches=4)
+                       out_s=0.008, wait_s=0.132, encode_s=1.0, batches=4,
+                       staged_ready=3)
     line = stats.summary()
     assert line.startswith("8 frames in 2.00s (4.0 fps overall; ")
     assert "decode 16.0 fps, device loop 40.0 fps, encode 8.0 fps" in line
+    assert "encode 8.0 fps); staged ahead 3/4; ms a batch" in line
     assert line.endswith("ms a batch: take 1.00, stage 10.00, "
                          "render 5.00, out 2.00, wait 33.00")
     assert StageStats().summary().endswith("ms a batch: n/a")
