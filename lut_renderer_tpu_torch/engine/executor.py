@@ -17,7 +17,11 @@ With more than one card and ``device="cuda"`` (no index), the frame batch
 is split across the cards as the JAX executor shards it over its mesh
 (parallel.sharding); ``"cuda:N"`` pins one card. The batch then rounds up
 to a multiple of the card count, and the split stages through the first
-card: its copy engine takes every batch in and out.
+card: its copy engine takes every batch in and out. The split's own spans
+(``sharding.call`` and its ``sharding.put``, ``sharding.chunk`` a card and
+``sharding.gather``) run inside ``executor.render``; its ``SplitStats``
+(calls, frames a card, bytes copied between cards) shows in
+``StageStats.summary()``.
 
 Not carried over from the JAX executor: geometry bucketing (CUDA kernels
 take runtime shapes, so there is no per-shape compile to avoid), the
@@ -48,7 +52,7 @@ from ..plan.policy import RenderSpec
 
 from ..device import DeviceLike, resolve_device
 from ..ops.render import lut_tier, make_render_fn
-from ..parallel import default_mesh, make_sharded_render_fn
+from ..parallel import SplitStats, default_mesh, make_sharded_render_fn
 from ..spans import begin as begin_spans
 from ..spans import span, write_jsonl as write_spans
 from .config import (
@@ -74,7 +78,9 @@ class StageStats:
     -> pinned and the copy in; on CUDA the staging thread's ``executor.pin``),
     render (the render call), out (the pinned outputs and the copy out) and
     wait (for the previous batch's copy out). `staged_ready` counts the
-    batches already staged when the loop asked for them."""
+    batches already staged when the loop asked for them. `split` is the
+    split render function's counters where the stage splits its batch over
+    several devices."""
 
     frames_in: int = 0
     frames_out: int = 0
@@ -88,6 +94,7 @@ class StageStats:
     encode_s: float = 0.0
     batches: int = 0
     staged_ready: int = 0
+    split: Optional[SplitStats] = None
 
     def summary(self) -> str:
         def rate(n, t):
@@ -98,6 +105,7 @@ class StageStats:
             f"{k} {getattr(self, k + '_s') / self.batches * 1e3:.2f}"
             for k in ("take", "stage", "render", "out", "wait")
         ) if self.batches else "n/a"
+        split = f"; {self.split.summary()}" if self.split else ""
         return (
             f"{self.frames_out} frames in {self.wall_s:.2f}s "
             f"({rate(self.frames_out, self.wall_s)} overall; "
@@ -105,7 +113,7 @@ class StageStats:
             f"device loop {rate(self.frames_out, loop_s)}, "
             f"encode {rate(self.frames_out, self.encode_s)}); "
             f"staged ahead {self.staged_ready}/{self.batches}; "
-            f"ms a batch: {steps}"
+            f"ms a batch: {steps}{split}"
         )
 
 
@@ -443,6 +451,7 @@ def run_stage(
             ndev = len(mesh)
             bsz = max(ndev, ((bsz + ndev - 1) // ndev) * ndev)
             render_fn = make_sharded_render_fn(lut, cfg, mesh)
+            stats.split = render_fn.stats
             log(f"engine: frame batch split over {ndev} devices "
                 f"({', '.join(map(str, mesh))}), batch={bsz}")
         else:

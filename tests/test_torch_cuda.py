@@ -500,6 +500,51 @@ def test_split_over_two_streams_is_bit_equal(cuda_device, resize):
                 assert a.device == e.device and torch.equal(a, e)
 
 
+def test_split_spans_over_four_streams_of_the_card(cuda_device):
+    """Under a profiler that traces the card, the split over four streams
+    of one card records its call, a chunk a stream under it, and no bytes
+    between cards (every chunk stays on the first card), and stays
+    bit-equal to the unsplit function; no device-side event carries a
+    span's name, which would count as device work."""
+    from torch.autograd import DeviceType
+
+    from lut_renderer_tpu_torch import spans
+    from lut_renderer_tpu_torch.parallel import (SplitStats,
+                                                 make_sharded_render_fn)
+
+    lut = random_lut(33, seed=14)
+    cfg = RenderConfig(in_depth=10, out_depth=10)
+    split_fn = make_sharded_render_fn(lut, cfg, ["cuda:0"] * 4)
+    y, u, v = to_torch(*planes(14, 4, 64, 128, 10), device=cuda_device)
+    split_fn(y, u, v)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    got = split_fn(y, u, v)
+    torch.cuda.synchronize()
+    prof.stop()
+    whole = make_render_fn(lut, cfg, cuda_device)(y, u, v)
+    for a, e in zip(got, whole):
+        assert a.device == e.device and torch.equal(a, e)
+    recs = spans.records()
+    (call,) = [r for r in recs if r.name == "sharding.call"]
+    assert call.attrs == {"cards": 4, "frames": 4, "peer_bytes": 0}
+    mine = [r for r in recs if r.parent == call.id]
+    assert [r.name for r in mine] == (["sharding.put"]
+                                      + ["sharding.chunk"] * 4
+                                      + ["sharding.gather"])
+    assert [(r.attrs["card"], r.attrs["frames"]) for r in mine[1:5]] == [
+        (i, 1) for i in range(4)]
+    assert split_fn.stats == SplitStats(calls=2, frames=[2] * 4,
+                                        peer_bytes=0)
+    on_card = {ev.name() for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA}
+    assert any("fused420_kernel" in n for n in on_card)
+    assert not [n for n in on_card if n.startswith("sharding.")]
+
+
 # ---- BASELINE configurations at their published sizes ---------------------
 
 def _baseline(prefix):

@@ -169,6 +169,12 @@ def test_stage_split_vs_single_device(clip, tmp_path, monkeypatch,
         if use_mesh:
             assert "batch=4" in split_logs[0]
             assert res.stats.batches == 3  # 11 frames in batches of 4
+            # the split's counters: a padded batch renders whole
+            assert res.stats.split.calls == 3
+            assert res.stats.split.frames == [6, 6]
+            assert "split over 2 devices: 3 calls" in res.stats.summary()
+        else:
+            assert res.stats.split is None
         with VideoDecoder(spec.output) as dec:
             outs[name] = [(f.y.copy(), f.u.copy(), f.v.copy()) for f in dec]
     assert len(outs["split"]) == len(outs["single"]) == 11
