@@ -41,13 +41,16 @@ through the port's CLI. Phases:
                          an error-diffusion job through kernel C
   5. file to file        CLI render --device cuda vs --device cpu
   6. resize path         the device loop over seeded frames with a resize
-                         (kernel A at the input size, then the resample):
-                         4K -> 1080p (16 frames, batch 2, also ordered
-                         dither and error diffusion) and 1080p -> 4K (16,
-                         batch 8); kernel A's launch count; the first batch
-                         against the plain version; fps, and per batch
-                         kernel A, the resample (beside its dense FLOP
-                         count and bound), the rest, H2D and D2H
+                         (kernel A at the input size, then the banded
+                         resample kernel): 4K -> 1080p (16 frames, batch 2,
+                         also ordered dither and error diffusion) and
+                         1080p -> 4K (16, batch 8); kernel A's and the
+                         resample's launch counts; the first batch against
+                         the plain version; fps, and per batch kernel A,
+                         the resample (bit-equal to its plain version;
+                         beside its bound, the plain version's time and
+                         the dense torch.matmul pair's, library_ms), the
+                         rest, H2D and D2H
   6T. resample precision resample_plane against a float64 product, then
                          again with allow_tf32=True: bit-equal
   7. split               make_sharded_render_fn over two streams of card 0
@@ -180,7 +183,7 @@ def main() -> int:
         _pick_batch_size,
         render_batches,
     )
-    from lut_renderer_tpu_torch.ops import _build, fused420, lut3d
+    from lut_renderer_tpu_torch.ops import _build, fused420, lut3d, resample
     from lut_renderer_tpu_torch.ops.prepare import Coarse2Table, LutTable
     from lut_renderer_tpu_torch.ops.pixel import render_planes
     from lut_renderer_tpu_torch.ops.render import RenderConfig, make_render_fn
@@ -498,7 +501,8 @@ def main() -> int:
 
     plains = ((fused420, "render_fused420_reference"),
               (lut3d, "apply_lut_planes_reference"),
-              (lut3d, "apply_lut_planes_coarse2_reference"))
+              (lut3d, "apply_lut_planes_coarse2_reference"),
+              (resample, "resample_plane_reference"))
     counters = {"A": (lut3d, "launches"), "C": (lut3d, "coarse2_launches"),
                 "B": (fused420, "launches"),
                 "B coarse2": (fused420, "coarse2_launches")}
@@ -699,11 +703,16 @@ def main() -> int:
 
     # ---- 6. resize path: kernel A, then the resample -------------------------
     mark("6")
-    from lut_renderer_tpu_torch.ops.resample import resample_plane, weights_on
+    from lut_renderer_tpu_torch.ops.resample import (
+        bands_on,
+        resample_plane,
+        resample_plane_dense,
+        resample_plane_reference,
+        weights_on,
+    )
 
-    def resample_fn(wv, wh):
-        return lambda r, g, b: tuple(resample_plane(p, wv, wh)
-                                     for p in (r, g, b))
+    def resample_fn(fn, wv, wh):
+        return lambda r, g, b: tuple(fn(p, wv, wh) for p in (r, g, b))
 
     def resize_path(what, in_wh, out_wh, n_frames, seed, **kw):
         """The executor's device loop over seeded frames resized in_wh ->
@@ -724,6 +733,7 @@ def main() -> int:
             pass
         cold = n_frames / (time.perf_counter() - t0)
         saved = start_path()
+        rs_before = resample.launches
         first, n_out = None, 0
         t0 = time.perf_counter()
         for o in render_batches(iter(bats), fn, dev):
@@ -737,18 +747,23 @@ def main() -> int:
             n_out += o[3]
         wall = time.perf_counter() - t0
         counts = end_path(saved)
+        rs_launches = resample.launches - rs_before
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         if counts != {"A": len(bats), "C": 0, "B": 0, "B coarse2": 0}:
             fail(f"{what} launches {counts}, expected A={len(bats)}")
+        if rs_launches != 3 * len(bats):
+            fail(f"{what} resample launches {rs_launches}, expected "
+                 f"{3 * len(bats)}")
         if n_out != n_frames:
             fail(f"{what} returned {n_out} of {n_frames} frames")
-        # the plain version: kernel A's plain twin, the same resample
+        # the plain version: kernel A's plain twin, the resample's
         planes = [torch.from_numpy(p).to(dev) for p in bats[0][:3]]
         wv, wh = weights_on((h, w), out_wh, dev)
+        bv, bh = bands_on((h, w), out_wh, dev)
         want = render_planes(*planes, cfg, lambda r, g, bb:
                              lut3d.apply_lut_planes_reference(
                                  r, g, bb, table33, cfg.interp),
-                             resample_fn(wv, wh))
+                             resample_fn(resample_plane_reference, bv, bh))
         if ed:
             d = max(float(np.abs(a - e.cpu().numpy()).max())
                     for a, e in zip(first, want))
@@ -766,8 +781,18 @@ def main() -> int:
                        graph=True)
         lut_out = lut3d.prepared_launch(*rgb, table33, TETRA)
         lut_out[0]()
-        rs = resample_fn(wv, wh)
-        rs_ms = time_ms(lambda: rs(*lut_out[1]), 5)
+        # the resample of kernel A's output: the kernel (launches captured
+        # in a CUDA graph, as kernel A's), bit-equal to its plain version;
+        # the plain version and the dense products (library_ms) beside it
+        rs = resample_fn(resample_plane, bv, bh)
+        rs_plain = resample_fn(resample_plane_reference, bv, bh)
+        rs_dense = resample_fn(resample_plane_dense, wv, wh)
+        if not all(torch.equal(a, e) for a, e in zip(rs(*lut_out[1]),
+                                                      rs_plain(*lut_out[1]))):
+            fail(f"{what} resample kernel differs from its plain version")
+        rs_ms = time_ms(lambda: rs(*lut_out[1]), 10, graph=True)
+        rs_plain_ms = time_ms(lambda: rs_plain(*lut_out[1]), 3)
+        rs_lib_ms = time_ms(lambda: rs_dense(*lut_out[1]), 3)
         dev_in = [torch.from_numpy(p).to(dev) for p in bats[-1][:3]]
         total_ms = time_ms(lambda: fn(*dev_in), 5)
         host = [torch.from_numpy(p).pin_memory() for p in bats[-1][:3]]
@@ -777,9 +802,9 @@ def main() -> int:
                   for o in outs]
         d2h = time_ms(lambda: [p.copy_(o, non_blocking=True)
                                for p, o in zip(pinned, outs)], 10)
-        # the resample's work on this batch: dense products as run, and
-        # the least time for its function (planes in and out once; the
-        # banded taps of the weights)
+        # the resample's work on this batch: dense products as the library
+        # runs them, and the least time for its function (planes in and out
+        # once; the banded taps of the weights)
         dense_flops = 3 * b * 2 * (oh * h * w + oh * w * ow)
         banded_flops = 3 * b * 2 * (int((wv != 0).sum()) * w
                                     + int((wh != 0).sum()) * oh)
@@ -787,7 +812,10 @@ def main() -> int:
         rec = dict(frames=n_frames, batch=b, fps=n_frames / wall,
                    cold_fps=cold, max_abs_diff=d, launches=counts["A"],
                    peak_device_gb=peak_gb, kernel_a_ms=a_ms,
-                   resample_ms=rs_ms, rest_ms=total_ms - a_ms - rs_ms,
+                   resample_ms=rs_ms, resample_plain_ms=rs_plain_ms,
+                   resample_library_ms=rs_lib_ms,
+                   resample_launches=rs_launches,
+                   rest_ms=total_ms - a_ms - rs_ms,
                    render_fn_ms=total_ms, h2d_ms=h2d, d2h_ms=d2h,
                    resample_dense_gflop=dense_flops / 1e9,
                    resample_dense_floor_ms=dense_flops / F32_FLOPS_PER_S
@@ -798,13 +826,16 @@ def main() -> int:
               f"420p8 33^3 tetrahedral{' ' + cfg.dither if kw else ''} in "
               f"{len(bats)} batches of {b}: {rec['fps']:.2f} fps end to end "
               f"(cold pass {cold:.2f}); per batch kernel A {a_ms:.4f} ms, "
-              f"resample {rs_ms:.3f} ms (dense {rec['resample_dense_gflop']:.1f}"
-              f" GFLOP, f32 floor {rec['resample_dense_floor_ms']:.3f} ms; "
-              f"bound {rs_bound:.4f} ms by {rs_by}, share "
-              f"{rec['resample_share']:.3%}), rest of the plain layout "
+              f"resample {rs_ms:.4f} ms (bound {rs_bound:.4f} ms by {rs_by},"
+              f" share {rec['resample_share']:.3%}; plain {rs_plain_ms:.3f} "
+              f"ms; dense torch.matmul pair {rs_lib_ms:.3f} ms, "
+              f"{rec['resample_dense_gflop']:.1f} GFLOP, f32 floor "
+              f"{rec['resample_dense_floor_ms']:.3f} ms), rest of the plain "
+              f"layout "
               f"{rec['rest_ms']:.3f} ms (render fn {total_ms:.3f}), H2D "
               f"{h2d:.3f} ms, D2H {d2h:.3f} ms; first batch vs plain "
-              f"max|d|={d:.3g}; launches {counts}; peak device memory "
+              f"max|d|={d:.3g}; launches {counts}, resample {rs_launches}; "
+              f"peak device memory "
               f"{peak_gb:.2f} GB; card {card}", flush=True)
         return rec
 
@@ -1003,6 +1034,7 @@ def main() -> int:
         cold = st.frames / (time.perf_counter() - t0)
         torch.cuda.reset_peak_memory_stats(dev)
         saved = start_path()
+        rs_before = resample.launches
         first, n_out = None, 0
         t0 = time.perf_counter()
         for o in render_batches(iter(bats), fn, dev):
@@ -1167,6 +1199,28 @@ def main() -> int:
     # phase 9: every BASELINE configuration's stage through the device loop
     kernels[1]["baseline_configs"] = configs
     kernels[3]["stages_ms"] = ac_stages["C 129^3 coarse2f"]
+    # the banded resample at phase 6's two resize shapes (4K -> 1080p x 2
+    # first); its plain version is the same taps in plain PyTorch
+    rs_paths = {k: resize[k] for k in ("4K->1080p", "1080p->4K")}
+    rs_main = rs_paths["4K->1080p"]
+    kernels.append({
+        "name": "resample (banded)", "route": "cuda",
+        "source": "lut_renderer_tpu_torch/csrc/resample.cu",
+        "replaces": "none: lut_renderer_tpu/ops/resample.py resample_plane's "
+                    "two einsums, outside any Pallas kernel",
+        "launches": sum(v["resample_launches"] for v in resize.values()),
+        "max_abs_err": 0.0, "ms": rs_main["resample_ms"],
+        "plain_ms": rs_main["resample_plain_ms"],
+        "bound_ms": rs_main["resample_bound_ms"],
+        "bound_by": rs_main["resample_bound_by"],
+        "library_ms": rs_main["resample_library_ms"],
+        "library_case": "the dense torch.matmul pair a frame and plane, IEEE "
+                        "f32 (resample_plane_dense)",
+        "share": rs_main["resample_share"],
+        "resize_paths": {k: {f: v[f] for f in (
+            "batch", "resample_ms", "resample_plain_ms",
+            "resample_library_ms", "resample_bound_ms", "resample_share")}
+            for k, v in rs_paths.items()}})
     print(json.dumps({"main_path_fps": fps, "cold_pass_fps": cold_fps,
                       "frames": n_frames,
                       "batch": bsz, "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,

@@ -2,8 +2,9 @@
 
 The render path runs on an NVIDIA Hopper card through hand-written CUDA
 kernels (csrc/): kernel A applies a 3D LUT to planar RGB, kernel C applies
-a big LUT stored as a coarse table plus an int8 residual, and kernel B
-renders a whole YUV frame to YUV in one pass with either table. Every
+a big LUT stored as a coarse table plus an int8 residual, kernel B
+renders a whole YUV frame to YUV in one pass with either table, and the
+banded resample kernel resizes the RGB planes of a resize. Every
 kernel wrapper keeps a plain PyTorch version beside it, which runs on CPU
 tensors.
 

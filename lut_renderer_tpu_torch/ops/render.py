@@ -19,11 +19,12 @@ approximate the exact function.
 
 A resize (``cfg.resize``, the policy's ``-s WxH``) takes the plain layout,
 as in the JAX package: kernel A (or C) at the input size, then the
-swscale-matched bicubic of ops.resample on the RGB planes, then RGB->YUV.
+swscale-matched bicubic of ops.resample (the banded resample kernel) on
+the RGB planes, then RGB->YUV.
 
 PyTorch runs eagerly, so ``make_render_fn`` compiles nothing: it caches a
 prepared callable per (config, LUT size, domain and tier, device) that
-holds the per-config constants and the resize weights on the device, and
+holds the per-config constants and the resize bands on the device, and
 uploads the LUT once.
 """
 
@@ -40,7 +41,7 @@ from .fused420 import bayer_tensor, fused420_applicable, render_fused420
 from .lut3d import apply_lut_planes
 from .pixel import render_planes
 from .prepare import COARSE2_TIERS, Coarse2Table, LutTable, has_coarse2
-from .resample import resample_plane, weights_on
+from .resample import bands_on, resample_plane
 
 Table = Union[LutTable, Coarse2Table]
 
@@ -113,8 +114,9 @@ def render_yuv_frame(y, u, v, lut: Optional[Table], cfg: RenderConfig,
     """One (batched) frame through the pipeline. Inputs are integer
     code-value planes (uint8/uint16) at cfg.in_depth with
     cfg.in_subsampling chroma, on the device the work runs on.
-    resize_weights: the (Wv, Wh) pair of cfg.resize for this input size on
-    that device (make_render_fn caches it); None builds it here."""
+    resize_weights: the (vertical, horizontal) Band pair of cfg.resize for
+    this input size on that device (make_render_fn caches it); None builds
+    it here."""
     if _use_fused(y, u, cfg, lut):
         return render_fused420(y, u, v, lut, cfg, bayer=bayer)
     lut_fn = resize_fn = None
@@ -123,7 +125,7 @@ def render_yuv_frame(y, u, v, lut: Optional[Table], cfg: RenderConfig,
             return apply_lut_planes(r, g, b, lut, cfg.interp)
     if cfg.resize is not None:
         wv, wh = (resize_weights if resize_weights is not None
-                  else weights_on(y.shape[-2:], cfg.resize, y.device))
+                  else bands_on(y.shape[-2:], cfg.resize, y.device))
 
         def resize_fn(r, g, b):
             return tuple(resample_plane(p, wv, wh) for p in (r, g, b))
@@ -156,11 +158,11 @@ def lut_operands_for(lut, cfg: RenderConfig,
 
 class _Renderer:
     """The prepared callable for one (cfg, LUT size/domain/tier, device):
-    the device's Bayer tensor, the config and, for a resize, the (Wv, Wh)
+    the device's Bayer tensor, the config and, for a resize, the Band
     pairs on the device by input (H, W), with the LUT table passed per call
     so that LUTs of one size share it."""
 
-    # an 8K pair is about 155 MB of device memory
+    # Band pairs kept, by input size
     WEIGHTS_MAX = 4
 
     def __init__(self, cfg: RenderConfig, device: torch.device):
@@ -172,11 +174,11 @@ class _Renderer:
         self._weights_lock = threading.Lock()
 
     def resize_weights(self, hw: Tuple[int, int]):
-        """The (Wv, Wh) pair for input size `hw`, built once; FIFO-bounded."""
+        """The Band pair for input size `hw`, built once; FIFO-bounded."""
         with self._weights_lock:
             pair = self._weights.get(hw)
             if pair is None:
-                pair = weights_on(hw, self.cfg.resize, self.device)
+                pair = bands_on(hw, self.cfg.resize, self.device)
                 while len(self._weights) >= self.WEIGHTS_MAX:
                     self._weights.pop(next(iter(self._weights)))
                 self._weights[hw] = pair

@@ -1,5 +1,5 @@
-"""Kernels A, B and C and the device loop on the card, against their plain
-PyTorch versions on the same inputs. Every test here needs a CUDA device
+"""Kernels A, B and C, the banded resample kernel and the device loop on the
+card, against their plain PyTorch versions on the same inputs. Every test here needs a CUDA device
 (marker ``cuda``) and skips elsewhere.
 
 The file imports no jax, so that it runs where jax is not installed:
@@ -481,6 +481,79 @@ def test_resample_is_full_f32_whatever_the_tf32_setting(cuda_device):
                        wh.double().t())
     rel = float((got.double() - ref).abs().max() / ref.abs().max())
     assert rel < 1e-5, rel
+
+
+# (batch, in h, in w), (out h, out w): the two resize shapes of the cells
+# and chip_smoke.py, and odd ones (a tiny ratio, degenerate axes, a window
+# staged in chunks of rows)
+RESAMPLE_KERNEL_CASES = {
+    "4k_to_1080p_x2": ((2, 2160, 3840), (1080, 1920)),
+    "1080p_to_4k_x8": ((8, 1080, 1920), (2160, 3840)),
+    "17x13_to_13x17": ((3, 17, 13), (13, 17)),
+    "64x64_to_9x9": ((2, 64, 64), (9, 9)),
+    "1x3_to_4x1": ((2, 1, 3), (4, 1)),
+    "540x960_to_9x16_chunked": ((2, 540, 960), (9, 16)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESAMPLE_KERNEL_CASES))
+def test_resample_kernel_matches_plain(cuda_device, name):
+    """The banded kernel against its plain version on the same card,
+    bit for bit, on aligned planes and on planes one element off (the
+    scalar path)."""
+    from lut_renderer_tpu_torch.ops import resample
+
+    shape, out_hw = RESAMPLE_KERNEL_CASES[name]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.rand(shape, generator=g, device=cuda_device)
+    bv, bh = resample.bands_on(shape[-2:], out_hw[::-1], cuda_device)
+    before = resample.launches
+    got = resample.resample_plane(x, bv, bh)
+    torch.cuda.synchronize()
+    assert resample.launches == before + 1
+    want = resample.resample_plane_reference(x, bv, bh)
+    assert got.shape == want.shape == shape[:-2] + out_hw
+    assert torch.equal(got, want)
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    flat[1:] = x.flatten()
+    odd = flat[1:].view(shape)
+    assert torch.equal(resample.resample_plane(odd, bv, bh), want)
+
+
+def test_resized_batch_launches_the_resample_kernel_three_times(cuda_device):
+    from lut_renderer_tpu_torch.ops import resample
+
+    fn = make_render_fn(random_lut(17, seed=3), RenderConfig(resize=(96, 40)),
+                        cuda_device)
+    y, u, v = to_torch(*planes(5, 2, 64, 128, 8), device=cuda_device)
+    before = resample.launches
+    for n in (1, 2):
+        fn(y, u, v)
+        assert resample.launches == before + 3 * n
+    torch.cuda.synchronize()
+
+
+def test_resample_kernel_refuses_what_it_cannot_take(cuda_device):
+    from lut_renderer_tpu_torch.ops import _build, resample
+
+    bv, bh = resample.bands_on((4, 8), (4, 2), "cpu")
+    x = torch.zeros((1, 4, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="must lie on"):
+        resample.resample_plane(x, bv, bh)
+    bv, bh = bv.to(cuda_device), bh.to(cuda_device)
+    with pytest.raises(ValueError, match="split the batch"):
+        resample.resample_plane(torch.zeros((65536, 4, 8), device=cuda_device),
+                                bv, bh)
+    wide = resample.Band.from_dense(np.full((1, 6200), 1 / 6200, np.float32),
+                                    cuda_device)
+    with pytest.raises(ValueError, match="too wide"):
+        resample.resample_plane(torch.zeros((1, 4, 6200), device=cuda_device),
+                                bv, wide)
+    # the entry point's own guard: a launch it cannot take is refused
+    p, _out, _keep = resample.launch_args(x, bv, bh)
+    p.chunk_h = 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("resample_launch", p, cuda_device)
 
 
 @pytest.mark.parametrize("resize", [None, (96, 40)], ids=["main", "resize"])

@@ -1,12 +1,17 @@
 """The port's resize path against the JAX package's: the swscale-matched
-bicubic weights (bit-equal), resample_plane (within 1e-5 of the JAX
-einsums and of libswscale's own output), its precision switch, whole
+bicubic weights (bit-equal) and their band form (the dense matrix back bit
+for bit), resample_plane's banded plain version (within 1e-5 of the JAX
+einsums, of the dense yardstick and of libswscale's own output; a frame
+alone equals it in a batch), the kernel's launch geometry and ctypes
+mirror, the TF32 setting and the dense yardstick's switch, whole
 frames with a resize through render_yuv_frame and run_stage (the integer
 contract: max |d| <= 1 code value on fewer than 1e-3 of pixels; float
 planes of error diffusion within 1e-4), the renderer's weight cache and
 the executor's identity-resize drop."""
 
+import ctypes
 import dataclasses
+import re
 import threading
 from pathlib import Path
 
@@ -45,9 +50,13 @@ RESAMPLE_ATOL = 1e-5
 FLOAT_PLANE_ATOL = 1e-4
 
 
-@pytest.mark.parametrize("src,dst", [
-    (16, 32), (32, 16), (24, 10), (10, 24), (17, 13), (12, 12), (1, 4),
-    (3, 1), (2, 7), (64, 9), (1080, 2160), (3840, 1920)])
+# (src, dst) of one axis, odd and degenerate ones and the cells' resizes
+WEIGHT_PAIRS = [(16, 32), (32, 16), (24, 10), (10, 24), (17, 13), (12, 12),
+                (1, 4), (3, 1), (2, 7), (64, 9), (1080, 2160), (3840, 1920),
+                (2160, 1080)]
+
+
+@pytest.mark.parametrize("src,dst", WEIGHT_PAIRS)
 def test_weights_are_the_jax_weights_bit_for_bit(src, dst):
     got = tres.swscale_bicubic_weights(src, dst)
     want = jres.swscale_bicubic_weights(src, dst)
@@ -62,27 +71,38 @@ def test_weights_are_the_jax_weights_bit_for_bit(src, dst):
 
 @pytest.mark.parametrize("shape,out_hw", [
     ((20, 24), (10, 12)), ((3, 20, 24), (36, 52)), ((2, 2, 16, 30), (9, 41)),
-    ((1, 32, 48), (32, 48))])
+    ((1, 32, 48), (32, 48)), ((2, 17, 13), (13, 17)), ((3, 64, 64), (9, 9)),
+    ((2, 1, 3), (4, 1)), ((2, 3, 1), (1, 4)), ((1, 2, 7), (7, 2)),
+    ((1, 216, 384), (4, 6)), ((4, 2, 36, 64), (72, 128))])
 def test_resample_plane_matches_jax(shape, out_hw):
+    """The banded plain version (resample_plane on a CPU tensor, from the
+    dense matrices or from bands_on) within 1e-5 of the JAX einsums and of
+    the dense yardstick; each frame equals that frame resampled alone."""
     x = np.random.default_rng(1).random(shape, np.float32)
     wv, wh = jres.resample_weights(shape[-2:], out_hw)
     got = tres.resample_plane(*to_torch(x, wv, wh))
     want = np.asarray(jres.resample_plane(x, wv, wh))
+    assert got.dtype == torch.float32
     assert got.shape == want.shape == shape[:-2] + out_hw
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RESAMPLE_ATOL)
+    dense = tres.resample_plane_dense(*to_torch(x, wv, wh))
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=0,
+                               atol=RESAMPLE_ATOL)
+    bv, bh = tres.bands_on(shape[-2:], out_hw[::-1], "cpu")
+    assert torch.equal(tres.resample_plane_reference(torch.from_numpy(x),
+                                                     bv, bh), got)
     # frame by frame: a frame resamples as it does alone
     flat = got.reshape(-1, *out_hw)
-    one = tres.resample_plane(*to_torch(x.reshape(-1, *shape[-2:])[-1],
-                                        wv, wh))
-    assert torch.equal(flat[-1], one)
+    for i, frame in enumerate(torch.from_numpy(x).reshape(-1, *shape[-2:])):
+        assert torch.equal(tres.resample_plane(frame, bv, bh), flat[i])
 
 
 @pytest.mark.parametrize("in_hw,out_hw", [
     ((32, 48), (16, 24)), ((24, 20), (36, 52)), ((30, 44), (44, 30))])
 def test_resample_plane_matches_swscale(in_hw, out_hw):
-    """Against the bundled libswscale's own `-s` scaler, as
-    tests/test_resample.py holds the JAX package (smooth content in
-    [0.3, 0.7], so swscale's f32 output clamp does not skew it)."""
+    """The banded plain version against the bundled libswscale's own `-s`
+    scaler, as tests/test_resample.py holds the JAX package (smooth content
+    in [0.3, 0.7], so swscale's f32 output clamp does not skew it)."""
     (ih, iw), (oh, ow) = in_hw, out_hw
     yy, xx = np.mgrid[0:ih, 0:iw].astype(np.float32)
     plane = (0.5 + 0.12 * np.sin(2 * np.pi * xx / iw * 2.3 + 1.0)
@@ -96,18 +116,23 @@ def test_resample_plane_matches_swscale(in_hw, out_hw):
 
 
 def test_resample_plane_restores_the_callers_tf32_setting():
+    """Neither the banded resample nor the dense yardstick leaves the
+    caller's TF32 setting changed, and neither result moves with it."""
     mm = torch.backends.cuda.matmul
     x, wv, wh = to_torch(np.random.default_rng(2).random((2, 16, 24),
                                                          np.float32),
                          *tres.resample_weights((16, 24), (8, 40)))
     saved = mm.fp32_precision
     try:
-        want = tres.resample_plane(x, wv, wh)
+        want = [f(x, wv, wh) for f in (tres.resample_plane,
+                                       tres.resample_plane_dense)]
         assert mm.fp32_precision == saved
         mm.allow_tf32 = True
-        got = tres.resample_plane(x, wv, wh)
+        got = [f(x, wv, wh) for f in (tres.resample_plane,
+                                      tres.resample_plane_dense)]
         assert mm.fp32_precision == "tf32" and mm.allow_tf32
-        assert torch.equal(got, want)
+        for a, e in zip(got, want):
+            assert torch.equal(a, e)
         seen = []
         with tres.ieee_f32_matmul():
             seen.append(mm.fp32_precision)
@@ -138,6 +163,122 @@ def test_precision_switch_is_serialised_across_threads():
         t.join(timeout=60)
     assert not any(t.is_alive() for t in threads) and not errors
     assert mm.fp32_precision == saved
+
+
+# ---- the band form, its plain version and the kernel's host side ----------
+
+def dense(band) -> np.ndarray:
+    """The (dst, src) matrix a Band holds."""
+    w = np.zeros((band.dst, band.src), np.float32)
+    cols = band.start.numpy()[:, None] + np.arange(band.k)
+    w[np.arange(band.dst)[:, None], cols] = band.taps.numpy()
+    return w
+
+
+@pytest.mark.parametrize("src,dst", WEIGHT_PAIRS)
+def test_band_rebuilds_the_weights_bit_for_bit(src, dst):
+    want = jres.swscale_bicubic_weights(src, dst)
+    band = tres.Band.from_dense(tres.swscale_bicubic_weights(src, dst))
+    assert np.array_equal(dense(band), want)
+    start = band.start.numpy()
+    assert band.start.dtype == torch.int32 and band.taps.dtype == torch.float32
+    assert np.array_equal(start, band.host_start)
+    assert (np.diff(start) >= 0).all() and start.min() >= 0
+    assert start.max() + band.k <= src and band.dst == dst
+    # K is the widest run of non-zero weights over the rows
+    nz = want != 0
+    runs = (src - nz[:, ::-1].argmax(1)) - nz.argmax(1)
+    assert band.k == runs.max()
+
+
+def test_band_refuses_starts_that_fall():
+    w = np.eye(4, dtype=np.float32)[::-1]
+    with pytest.raises(ValueError, match="decrease"):
+        tres.Band.from_dense(w)
+
+
+_CTYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+           "const int*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+           "int": ctypes.c_int}
+
+
+def test_ctypes_mirror_matches_the_c_struct():
+    src = (Path(tres.__file__).parent.parent / "csrc" / "resample.cu"
+           ).read_text()
+    body = re.search(r"struct ResampleParams \{(.*?)\n\};", src, re.S).group(1)
+    want = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if line:
+            m = re.fullmatch(r"(.+?)\s*(\w+);", line)
+            want.append((m.group(2), _CTYPES[m.group(1).replace(" *", "*")]))
+    assert tres._ResampleParams._fields_ == want
+    from lut_renderer_tpu_torch.ops import _build
+
+    assert "resample.cu" in _build.SOURCES
+    assert "resample_launch" in _build.ENTRY_POINTS
+    # the kernel's symbol carries `gemm`: the benchmark reads the layer so
+    assert "resample_banded_gemm_kernel" in src
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((2160, 3840), (1080, 1920)),
+                                          ((1080, 1920), (2160, 3840)),
+                                          ((4320, 7680), (2160, 3840)),
+                                          ((2160, 3840), (720, 1280))])
+def test_launch_geometry_fits_two_blocks_an_sm(in_hw, out_hw):
+    """The resize shapes take a whole-window tile that leaves room for at
+    least two blocks on each SM (228 KB of shared memory each), and every
+    tile's window holds its taps."""
+    bv, bh = tres.bands_on(in_hw, out_hw[::-1], "cpu")
+    for vec in (True, False):
+        g = tres.geometry(bv, bh, vec)
+        assert g.chunk_h == g.win_h and g.tile_h * g.tile_w >= 512
+        nbytes = tres.smem_bytes(g.tile_h, g.tile_w, g.win_w, g.chunk_h,
+                                 bv.k, bh.k)
+        assert nbytes <= tres.SMEM_BYTES and g.win_w % 4 == 0
+        # blocks an SM holds: 2048 threads, 228 KB less 1 KB a block
+        assert min(2048 // tres.THREADS, 228 * 1024 // (nbytes + 1024)) >= 2
+        for band, tile, win, align in ((bv, g.tile_h, g.win_h, 1),
+                                       (bh, g.tile_w, g.win_w, 4 if vec
+                                        else 1)):
+            s = band.host_start
+            for t0 in range(0, band.dst, tile):
+                t1 = min(t0 + tile, band.dst) - 1
+                lo = s[t0] - s[t0] % align
+                assert s[t1] + band.k - lo <= win
+
+
+def test_launch_geometry_chunks_a_window_too_tall_and_refuses_too_wide():
+    bv, bh = tres.bands_on((2160, 3840), (64, 36), "cpu")
+    g = tres.geometry(bv, bh, True)
+    assert (g.tile_h, g.tile_w) == (1, 1) and 1 <= g.chunk_h < g.win_h
+    assert (tres.smem_bytes(1, 1, g.win_w, g.chunk_h, bv.k, bh.k)
+            <= tres.SMEM_BYTES
+            < tres.smem_bytes(1, 1, g.win_w, g.chunk_h + 1, bv.k, bh.k))
+    wide = tres.Band.from_dense(np.full((1, 6200), 1 / 6200, np.float32))
+    with pytest.raises(ValueError, match="too wide"):
+        tres.geometry(bv, wide, False)
+
+
+def test_launch_args_refuse_what_the_kernel_cannot_take():
+    bv, bh = tres.bands_on((4, 8), (4, 2), "cpu")
+    p, out, keep = tres.launch_args(torch.zeros((3, 4, 8)), bv, bh)
+    assert out.shape == (3, 2, 4) and (p.frames, p.h, p.w) == (3, 4, 8)
+    assert (p.oh, p.ow, p.kv, p.kh) == (2, 4, bv.k, bh.k) and p.vec == 1
+    g = tres.geometry(bv, bh, True)
+    assert (p.tile_h, p.tile_w, p.win_h, p.win_w, p.chunk_h) == (
+        g.tile_h, g.tile_w, g.win_h, g.win_w, g.chunk_h)
+    rows = tres.MAX_GRID_YZ * 16 + 1  # one row tile too many
+    tall = tres.Band(torch.zeros(rows, dtype=torch.int32),
+                     torch.ones((rows, 1)), 1, np.zeros(rows, np.int64))
+    with pytest.raises(ValueError, match="split the batch"):
+        tres.launch_args(torch.zeros((1, 1, 8)), tall, bh)
+    with pytest.raises(ValueError, match="split the batch"):
+        tres.launch_args(torch.zeros((tres.MAX_GRID_YZ + 1, 4, 8)), bv, bh)
+    with pytest.raises(ValueError, match="cannot take"):
+        tres.launch_args(torch.zeros((1, 4, 9)), bv, bh)
+    with pytest.raises(ValueError, match="cannot take"):
+        tres.resample_plane(torch.zeros((1, 5, 8)), bv, bh)
 
 
 @pytest.fixture(scope="module")
@@ -230,7 +371,7 @@ def test_renderer_caches_the_weights_by_input_size(lut):
     assert list(renderer._weights)[-1] == (16, 32)  # rebuilt after eviction
     wv, wh = renderer.resize_weights((16, 32))
     assert renderer.resize_weights((16, 32))[0] is wv
-    assert np.array_equal(wh.numpy(), jres.swscale_bicubic_weights(32, 24))
+    assert np.array_equal(dense(wh), jres.swscale_bicubic_weights(32, 24))
 
 
 @pytest.fixture(scope="module")
