@@ -23,9 +23,11 @@ through the port's CLI. Phases:
                          instantiation), ramp planes; <= 1e-5 absolute;
                          times on both kinds of planes beside kernel A's
                          exact table at each N; the 129^3 table build
-  2P. stage probe        kernels A (33^3) and C (129^3 coarse2f) built in
-                         stages (probes/kernel_ac.py) at 4K x 2, timed on
-                         both kinds of planes
+  2P. stage probe        the probes' own library of stage builds
+                         (probes/harness.probe_library), then kernels A
+                         (33^3) and C (129^3 coarse2f) built in stages
+                         (probes/kernel_ac.py) at 4K x 2, timed on both
+                         kinds of planes
   3. kernel B            whole-frame YUV->YUV vs plain: 4K 420p8 (ramp and
                          uniform-random frames) and the geometry/depth/
                          range/dither matrix, exact and coarse2f tables;
@@ -190,9 +192,11 @@ def main() -> int:
     from lut_renderer_tpu_torch.probes import kernel_ac, kernel_b
     from lut_renderer_tpu_torch.probes.harness import (
         KERNEL_B_CASES,
+        PROBE_SOURCES,
         SEED,
         card_line,
         plain_rgb,
+        probe_library,
         random_lut,
         time_ms,
         uniform_frames,
@@ -254,10 +258,10 @@ def main() -> int:
         err_a = max(err_a, lut_check(table, [t[0, :1080, :1920] for t in rgb_u],
                                      (TETRA,), f"kernel A 1080p {n}^3"))
     # times of launches prepared once, replayed from a CUDA graph
-    a_ms = time_ms(lut3d.prepared_launch(*rgb_r, table33, TETRA)[0], 20,
+    a_ms = time_ms(kernel_ac.prepared_launch(*rgb_r, table33, TETRA)[0], 20,
                    graph=True)
-    a_uniform = time_ms(lut3d.prepared_launch(*rgb_u, table33, TETRA)[0], 20,
-                        graph=True)
+    a_uniform = time_ms(
+        kernel_ac.prepared_launch(*rgb_u, table33, TETRA)[0], 20, graph=True)
     a_plain = time_ms(
         lambda: lut3d.apply_lut_planes_reference(*rgb_r, table33, TETRA), 3)
     # the library yardstick of the trilinear case: grid_sample on the
@@ -271,7 +275,7 @@ def main() -> int:
             tab_t, grid, mode="bilinear", padding_mode="border",
             align_corners=True)
 
-    tri_launch, tri = lut3d.prepared_launch(*rgb_u, table33, "trilinear")
+    tri_launch, tri = kernel_ac.prepared_launch(*rgb_u, table33, "trilinear")
     tri_launch()
     lib_err = float((library()[0, :, 0, 0].reshape(3, *rgb_u[0].shape)
                      - torch.stack(tri)).abs().max())
@@ -309,8 +313,8 @@ def main() -> int:
             c_times[n] = dict(A_table=table_bytes(exact),
                               C_table=table_bytes(table))
             for kind, rgb in (("ramp", rgb_r), ("uniform", rgb_u)):
-                run_a = lut3d.prepared_launch(*rgb, exact, TETRA)[0]
-                run_c = lut3d.prepared_launch(*rgb, table, TETRA)[0]
+                run_a = kernel_ac.prepared_launch(*rgb, exact, TETRA)[0]
+                run_c = kernel_ac.prepared_launch(*rgb, table, TETRA)[0]
                 t = [time_ms(f, 20, graph=True)
                      for f in (run_a, run_c, run_c, run_a)]
                 c_times[n][kind] = dict(A_ms=(t[0] + t[3]) / 2,
@@ -353,6 +357,10 @@ def main() -> int:
 
     # ---- 2P. the stage probe of kernels A and C -----------------------------
     mark("2P")
+    t0 = time.perf_counter()
+    probe_library()
+    print(f"phase 2P build: {', '.join(PROBE_SOURCES)} -> the probes' "
+          f"library in {time.perf_counter() - t0:.2f} s", flush=True)
     ac_stages = kernel_ac.stage_times(dev, ("A 33^3", "C 129^3 coarse2f"))
     print("phase 2P kernels A and C stages, 4K x 2 tetrahedral (io: "
           "load/store; weights: + domain map, cells, sums; coarse / resid: "
@@ -397,10 +405,10 @@ def main() -> int:
                                                      main_cfg),
                   "kernel B 4K 420p8 uniform-random")
     worst_b = max(worst_b, d)
-    b_ms = time_ms(fused420.prepared_launch(*planes4k, tab, main_cfg)[0], 20,
+    b_ms = time_ms(kernel_b.prepared_launch(*planes4k, tab, main_cfg)[0], 20,
                    graph=True)
     b_uniform = time_ms(
-        fused420.prepared_launch(*uniform4k, tab, main_cfg)[0], 20,
+        kernel_b.prepared_launch(*uniform4k, tab, main_cfg)[0], 20,
         graph=True)
     b_wrapper = time_ms(
         lambda: fused420.render_fused420(*planes4k, tab, main_cfg), 20)
@@ -427,8 +435,8 @@ def main() -> int:
                                       tier=BIG)
         worst_b2 = max(worst_b2, d)
         tab_x = LutTable.from_lut3d(lut, dev)
-        run_x = fused420.prepared_launch(*planes, tab_x, main_cfg)[0]
-        run_2 = fused420.prepared_launch(*planes, tab2, big_cfg)[0]
+        run_x = kernel_b.prepared_launch(*planes, tab_x, main_cfg)[0]
+        run_2 = kernel_b.prepared_launch(*planes, tab2, big_cfg)[0]
         t = [time_ms(f, 20, graph=True) for f in (run_x, run_2, run_2, run_x)]
         b2_times[n] = dict(B_ms=(t[0] + t[3]) / 2, B_coarse2_ms=(t[1] + t[2]) / 2)
         if n == 129:
@@ -440,7 +448,7 @@ def main() -> int:
                           f"kernel B 4K 420p8 {n}^3 {BIG} uniform-random")
             worst_b2 = max(worst_b2, d)
             b2_uniform = time_ms(
-                fused420.prepared_launch(*uniform, tab2, big_cfg)[0], 20,
+                kernel_b.prepared_launch(*uniform, tab2, big_cfg)[0], 20,
                 graph=True)
             b2_plain = time_ms(lambda: fused420.render_fused420_reference(
                 *planes, tab2, big_cfg), 2, warmup=1)
@@ -777,9 +785,9 @@ def main() -> int:
         # function (the rest is what remains), H2D and D2H
         rgb = plain_rgb(bats[1][:3] if len(bats) > 1 else bats[0][:3], cfg,
                         dev)
-        a_ms = time_ms(lut3d.prepared_launch(*rgb, table33, TETRA)[0], 10,
+        a_ms = time_ms(kernel_ac.prepared_launch(*rgb, table33, TETRA)[0], 10,
                        graph=True)
-        lut_out = lut3d.prepared_launch(*rgb, table33, TETRA)
+        lut_out = kernel_ac.prepared_launch(*rgb, table33, TETRA)
         lut_out[0]()
         # the resample of kernel A's output: the kernel (launches captured
         # in a CUDA graph, as kernel A's), bit-equal to its plain version;

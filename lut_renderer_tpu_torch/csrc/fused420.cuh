@@ -12,12 +12,12 @@
 //
 // The kernel is a template on the output geometry (OSY, OSX), the table
 // kind, the interpolation and the stage. Two translation units instantiate
-// it, so that nvcc builds them side by side: fused420.cu the exact f32
-// table (lutk::LutArgs, entry fused420_launch) and the stage probe's io and
-// color builds (entries fused420_io_launch, fused420_color_launch; never
-// on a render path), fused420_coarse2.cu the coarse + residual
-// decomposition of a big LUT at a coarse2* tier (lutk::Coarse2Args, entry
-// fused420_coarse2_launch).
+// its production stage, so that nvcc builds them side by side: fused420.cu
+// the exact f32 table (lutk::LutArgs, entry fused420_launch),
+// fused420_coarse2.cu the coarse + residual decomposition of a big LUT at
+// a coarse2* tier (lutk::Coarse2Args, entry fused420_coarse2_launch). The
+// stage probe's io and color builds are fused420_probe.cu, in the probes'
+// own library (entries fused420_io_launch, fused420_color_launch).
 //
 // What bounds it on Hopper: not bytes (3 B/px for 8-bit 4:2:0 in and out)
 // but the instruction stream and the table gathers. The design:

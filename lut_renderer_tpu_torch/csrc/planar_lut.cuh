@@ -106,7 +106,7 @@ struct Tuning<Coarse2Params> {
   static constexpr int kMinBlocks = 1;
 };
 
-// the stage probe's builds (ops/lut3d.PROBE_STAGES): io loads and stores
+// the stage probe's builds (probes/kernel_ac.STAGES): io loads and stores
 // the planes; weights adds the domain map, the cells and the sums over
 // stand-in corners (no table load); coarse and resid (kernel C) each run
 // one term with its loads; full is the production kernel

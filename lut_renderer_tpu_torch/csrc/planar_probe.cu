@@ -1,9 +1,9 @@
 // The stage probe's builds of kernels A and C (planar_lut.cuh), all
 // tetrahedral: io loads and stores the planes, weights adds the domain
 // map, the cells and the sums over stand-in corners, coarse and resid run
-// one of kernel C's terms with its loads. Never on a render path
-// (probes/kernel_ac.py, ops/lut3d.prepared_launch). Built beside lut3d.cu
-// and coarse2.cu.
+// one of kernel C's terms with its loads. Never on a render path: the
+// probes build this file into a library of their own
+// (probes/harness.probe_library), beside fused420_probe.cu.
 #include "planar_lut.cuh"
 
 #define PLANAR_STAGE_ENTRY(name, Params, STAGE)                          \

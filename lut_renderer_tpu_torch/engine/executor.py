@@ -6,12 +6,13 @@ Counterpart of lut_renderer_tpu/engine/executor.py:
 
 ``render_batches`` is the device loop on its own: host batches of integer
 planes in, quantised host planes out. ``run_stage`` wraps it with the
-hostio decoder and encoder. On a CUDA device a staging thread takes the
-host batches and copies each in (pageable -> pinned, then non-blocking on
-a copy stream), one batch ahead of the loop; the loop keeps one batch in
+hostio decoder and encoder. A staging thread takes the host batches and
+copies each in, one batch ahead of the loop; the loop keeps one batch in
 flight: batch N+1 is rendered before the host waits for batch N's copy
-out, which runs on its own stream after an event that marks the end of
-the render.
+out. On a CUDA device the copy in goes pageable -> pinned, then
+non-blocking on a copy stream, and the copy out runs on its own stream
+after an event that marks the end of the render; on the CPU, where the
+tests run it, the same loop hands the host arrays over as they are.
 
 With more than one card and ``device="cuda"`` (no index), the frame batch
 is split across the cards as the JAX executor shards it over its mesh
@@ -74,10 +75,11 @@ HostBatch = Tuple[np.ndarray, np.ndarray, np.ndarray, int]
 class StageStats:
     """A stage's counters. The seconds are sums of its spans
     (``spans.span``): the decode loop's and each encoded batch's, and per
-    batch of the device loop: take (the next host batch), stage (pageable
-    -> pinned and the copy in; on CUDA the staging thread's ``executor.pin``),
-    render (the render call), out (the pinned outputs and the copy out) and
-    wait (for the previous batch's copy out). `staged_ready` counts the
+    batch of the device loop: take (the next host batch), stage (the
+    staging thread's ``executor.pin``: pageable -> pinned and the copy in
+    on CUDA), render (the render call), out (the pinned outputs and the
+    copy out on CUDA) and wait (for the previous batch's copy out on
+    CUDA; the CPU's out and wait do nothing). `staged_ready` counts the
     batches already staged when the loop asked for them. `split` is the
     split render function's counters where the stage splits its batch over
     several devices."""
@@ -228,15 +230,86 @@ def stage_ahead(source: Iterable, stage, run=None,
             pass
 
 
+class _HostCopies:
+    """The device loop's copies on the CPU, where the render function takes
+    and gives host tensors: the arrays go in and come out as they are, and
+    there is no event to wait for."""
+
+    def copy_in(self, planes):
+        return [torch.from_numpy(a) for a in planes], None
+
+    def wait_in(self, planes, copied) -> None:
+        pass
+
+    def rendered(self):
+        return None
+
+    def copy_out(self, outs, rendered):
+        return outs, None
+
+    def wait_out(self, done) -> None:
+        pass
+
+
+class _CudaCopies:
+    """The device loop's copies on a CUDA device: in through pinned memory
+    on the `h2d` stream, which the render (on the current stream) waits
+    for; out into pinned memory on the `d2h` stream once the render is
+    done; each copy marked by an event."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.compute = torch.cuda.current_stream(device)
+        self.h2d = torch.cuda.Stream(device)
+        self.d2h = torch.cuda.Stream(device)
+
+    def copy_in(self, planes):
+        """On the staging thread: (device planes, their copy's event)."""
+        pinned = [torch.from_numpy(a).pin_memory() for a in planes]
+        with torch.cuda.stream(self.h2d):
+            planes = [p.to(self.device, non_blocking=True) for p in pinned]
+            copied = torch.cuda.Event()
+            copied.record(self.h2d)
+        return planes, copied
+
+    def wait_in(self, planes, copied) -> None:
+        self.compute.wait_event(copied)
+        for p in planes:
+            p.record_stream(self.compute)
+
+    def rendered(self):
+        """An event after the render just launched."""
+        rendered = torch.cuda.Event()
+        rendered.record(self.compute)
+        return rendered
+
+    def copy_out(self, outs, rendered):
+        """(pinned host outputs, their copy's event)."""
+        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                for o in outs]
+        with torch.cuda.stream(self.d2h):
+            self.d2h.wait_event(rendered)
+            for h, o in zip(host, outs):
+                o.record_stream(self.d2h)
+                h.copy_(o, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.d2h)
+        return host, done
+
+    def wait_out(self, done) -> None:
+        done.synchronize()
+
+
 def render_batches(batches: Iterable[HostBatch], render_fn,
                    device: torch.device,
                    stats: Optional[StageStats] = None) -> Iterator[HostBatch]:
     """Run `render_fn` over host batches on `device`, yielding numpy
-    outputs in order. On CUDA a staging thread copies each batch in, one
-    batch ahead (``stage_ahead``), and one batch stays in flight; the
-    yielded arrays live in pinned buffers and stay valid while referenced.
-    An exception of `batches` or of the staging is raised after the
-    batches before it are yielded.
+    outputs in order. A staging thread copies each batch in, one batch
+    ahead (``stage_ahead``), and one batch stays in flight: batch N is
+    yielded once batch N+1 is rendered. The yielded arrays (in pinned
+    buffers on CUDA, the render's own outputs on the CPU) stay valid while
+    referenced. An exception of `batches` or of the staging is raised
+    after the batches before it are yielded.
 
     Spans (``spans``), whose seconds add up in `stats`: ``executor.run``
     over the call (attribute ``first_yield_ns``: its first output, ns
@@ -245,51 +318,29 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
     in waited for on the device; attribute ``ready``: it was already
     staged), ``executor.render``, ``executor.out`` and ``executor.wait``,
     and on the staging thread ``executor.take`` and ``executor.pin`` (the
-    pageable -> pinned copy and the copy in enqueued); the CPU takes and
-    renders on the caller's thread."""
+    pageable -> pinned copy and the copy in enqueued on CUDA)."""
     stats = stats if stats is not None else StageStats()
     source = iter(batches)
     with span("executor.run") as run:
-        if device.type != "cuda":
-            for i in itertools.count():
-                with span("executor.take", run, batch=i) as sp:
-                    item = next(source, None)
-                stats.take_s += sp.seconds
-                if item is None:
-                    return
-                y, u, v, count = item
-                with span("executor.render", run, batch=i) as sp:
-                    outs = render_fn(*(torch.from_numpy(a) for a in (y, u, v)))
-                    res = tuple(o.numpy() for o in outs)
-                stats.render_s += sp.seconds
-                stats.batches += 1
-                run.mark("first_yield_ns")
-                yield (*res, count)
-
-        compute = torch.cuda.current_stream(device)
-        h2d = torch.cuda.Stream(device)
-        d2h = torch.cuda.Stream(device)
+        copies = (_CudaCopies(device) if device.type == "cuda"
+                  else _HostCopies())
 
         def stage(item):
             y, u, v, count = item
-            pinned = [torch.from_numpy(a).pin_memory() for a in (y, u, v)]
-            with torch.cuda.stream(h2d):
-                planes = [p.to(device, non_blocking=True) for p in pinned]
-                copied = torch.cuda.Event()
-                copied.record(h2d)
+            planes, copied = copies.copy_in((y, u, v))
             return planes, copied, count
 
         def finish(batch) -> HostBatch:
             host, done, count, i = batch
             with span("executor.wait", run, batch=i) as sp:
-                done.synchronize()
+                copies.wait_out(done)
             stats.wait_s += sp.seconds
             stats.batches += 1
             run.mark("first_yield_ns")
             return (*(h.numpy() for h in host), count)
 
         staged = stage_ahead(source, stage, run, stats)
-        in_flight = None  # (pinned outputs, done event, count, batch index)
+        in_flight = None  # (host outputs, done event, count, batch index)
         failed = None
         try:
             for i in itertools.count():
@@ -302,26 +353,15 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
                         (planes, copied, count), ready = got
                         sp.attrs["ready"] = ready
                         stats.staged_ready += ready
-                        compute.wait_event(copied)
-                        for p in planes:
-                            p.record_stream(compute)
+                        copies.wait_in(planes, copied)
                 if got is None:
                     break
                 with span("executor.render", run, batch=i) as sp:
                     outs = render_fn(*planes)
-                    rendered = torch.cuda.Event()
-                    rendered.record(compute)
+                    rendered = copies.rendered()
                 stats.render_s += sp.seconds
                 with span("executor.out", run, batch=i) as sp:
-                    host = [torch.empty(o.shape, dtype=o.dtype,
-                                        pin_memory=True) for o in outs]
-                    with torch.cuda.stream(d2h):
-                        d2h.wait_event(rendered)
-                        for h, o in zip(host, outs):
-                            o.record_stream(d2h)
-                            h.copy_(o, non_blocking=True)
-                        done = torch.cuda.Event()
-                        done.record(d2h)
+                    host, done = copies.copy_out(outs, rendered)
                 stats.out_s += sp.seconds
                 prev, in_flight = in_flight, (host, done, count, i)
                 if prev is not None:

@@ -31,15 +31,13 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("lut3d.cu", "coarse2.cu", "planar_probe.cu", "fused420.cu",
-           "fused420_coarse2.cu", "resample.cu")
+# the render library: the kernels a render path launches, and nothing else
+# (the stage probes build their own, probes/harness.probe_library)
+SOURCES = ("lut3d.cu", "coarse2.cu", "fused420.cu", "fused420_coarse2.cu",
+           "resample.cu")
 HEADERS = ("lut_interp.cuh", "planar_lut.cuh", "fused420.cuh")
 ENTRY_POINTS = ("lut3d_launch", "coarse2_launch", "fused420_launch",
-                "fused420_coarse2_launch", "fused420_io_launch",
-                "fused420_color_launch", "lut3d_io_launch",
-                "lut3d_weights_launch", "coarse2_io_launch",
-                "coarse2_weights_launch", "coarse2_coarse_launch",
-                "coarse2_resid_launch", "resample_launch")
+                "fused420_coarse2_launch", "resample_launch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",

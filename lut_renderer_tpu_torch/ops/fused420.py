@@ -11,8 +11,7 @@ one instantiation per interpolation and output geometry.
 ``launch_geometry`` picks its work units and whether the planes move as
 vectors. On CPU tensors it runs ``render_fused420_reference``: the plain
 layout of ops.pixel with the table's plain LUT, which is the value
-contract the JAX fused kernel is held to. ``prepared_launch`` serves
-the stage probe (probes/kernel_b.py) and counts no launch.
+contract the JAX fused kernel is held to.
 
 It covers every nearest-sited {420, 422, 444} -> {420, 422, 444} geometry
 at 8 or 10 bits, full or limited range with the intermediate requantise,
@@ -47,11 +46,6 @@ from .prepare import Coarse2Table, LutTable
 launches = 0
 coarse2_launches = 0
 
-# kernel B built in stages, for the stage probe (probes/kernel_b.py): io
-# loads, converts, quantises and stores with the colour math the identity;
-# color adds the range normalisation, YUV<->RGB, dither and downsample;
-# full is the production kernel
-PROBE_STAGES = ("io", "color", "full")
 # luma columns of a kernel B work unit (csrc/fused420.cuh): on the vector
 # path, and on the scalar path
 UNIT_COLS, SCALAR_COLS = 8, 2
@@ -253,13 +247,8 @@ def launch_args(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
     return p, (yo, uo, vo), (y, u, v, bayer)
 
 
-def entry_point(lut, stage: str = "full") -> str:
-    """The library entry that launches kernel B at `stage` for `lut`'s
-    table kind."""
-    if stage not in PROBE_STAGES:
-        raise ValueError(f"unknown kernel B stage {stage!r}")
-    if stage != "full":
-        return f"fused420_{stage}_launch"
+def entry_point(lut) -> str:
+    """The library entry that launches kernel B for `lut`'s table kind."""
     return ("fused420_coarse2_launch" if isinstance(lut, Coarse2Table)
             else "fused420_launch")
 
@@ -273,23 +262,6 @@ def _fused420_cuda(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
     else:
         launches += 1
     return out
-
-
-def prepared_launch(y, u, v, lut: Union[LutTable, Coarse2Table], cfg,
-                    stage: str = "full"):
-    """(launch, (yo, uo, vo)) on CUDA tensors: each ``launch()`` runs
-    kernel B at `stage` of PROBE_STAGES on operands checked and laid out
-    once, into the same outputs. For the stage probe and for timing the
-    kernel apart from the wrapper's host work; it counts no launch and
-    never runs on a render path."""
-    name = entry_point(lut, stage)
-    p, out, keep = launch_args(y, u, v, lut, cfg, None)
-    keep += out + (lut,)  # the launch holds every tensor p points to
-
-    def launch():
-        _build.launch(name, p, keep[0].device)
-
-    return launch, out
 
 
 def render_fused420(y, u, v, lut: Union[LutTable, Coarse2Table], cfg,

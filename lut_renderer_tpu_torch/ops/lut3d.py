@@ -19,8 +19,7 @@ dispatches here by the kind of table:
 
 Both kernels are instantiations of one skeleton (csrc/planar_lut.cuh): four
 pixels a thread, float4 plane I/O where the planes are aligned, the interp
-chosen on the host. ``prepared_launch`` serves the stage probe
-(probes/kernel_ac.py) and counts no launch.
+chosen on the host.
 """
 
 from __future__ import annotations
@@ -207,13 +206,6 @@ def apply_lut_planes_coarse2_reference(r, g, b, lut: Coarse2Table,
 # kernels A and C
 # ---------------------------------------------------------------------------
 
-# kernels A and C built in stages, for the stage probe (probes/kernel_ac.py;
-# csrc/planar_probe.cu, tetrahedral only): io loads and stores the planes;
-# weights adds the domain map, the cells and the sums over stand-in corners,
-# no table load; coarse and resid (kernel C only) each run one term with its
-# loads; full is the production kernel
-PROBE_STAGES = ("io", "weights", "coarse", "resid", "full")
-_COARSE2_ONLY_STAGES = ("coarse", "resid")
 _MAX_PIXELS = (1 << 31) - 1  # the kernels index in int32
 
 
@@ -321,16 +313,10 @@ def launch_args(r, g, b, lut: Union[LutTable, Coarse2Table], interp: str):
     return p, (ro, go, bo), (r, g, b, lut)
 
 
-def entry_point(lut, stage: str = "full") -> str:
-    """The library entry that launches kernel A or C (by `lut`'s kind) at
-    `stage` of PROBE_STAGES."""
-    coarse2 = isinstance(lut, Coarse2Table)
-    if stage not in PROBE_STAGES or (stage in _COARSE2_ONLY_STAGES
-                                     and not coarse2):
-        raise ValueError(f"kernel {'C' if coarse2 else 'A'} has no stage "
-                         f"{stage!r}")
-    kind = "coarse2" if coarse2 else "lut3d"
-    return f"{kind}_launch" if stage == "full" else f"{kind}_{stage}_launch"
+def entry_point(lut) -> str:
+    """The library entry that launches kernel A or C, by `lut`'s kind."""
+    return ("coarse2_launch" if isinstance(lut, Coarse2Table)
+            else "lut3d_launch")
 
 
 def _apply_cuda(r, g, b, lut: Union[LutTable, Coarse2Table], interp: str):
@@ -342,26 +328,6 @@ def _apply_cuda(r, g, b, lut: Union[LutTable, Coarse2Table], interp: str):
     else:
         launches += 1
     return out
-
-
-def prepared_launch(r, g, b, lut: Union[LutTable, Coarse2Table],
-                    interp: str = "tetrahedral", stage: str = "full"):
-    """(launch, (ro, go, bo)) on CUDA tensors: each ``launch()`` runs
-    kernel A or C at `stage` of PROBE_STAGES on operands checked once,
-    into the same outputs. For the stage probe and for timing the kernel
-    apart from the wrapper's host work; it counts no launch and never runs
-    on a render path. The stages below ``full`` are tetrahedral only."""
-    interp = canonical_interp(interp)
-    if stage != "full" and interp != "tetrahedral":
-        raise ValueError(f"stage {stage!r} is built for tetrahedral only")
-    name = entry_point(lut, stage)
-    p, out, keep = launch_args(r, g, b, lut, interp)
-    keep += out  # the launch holds every tensor p points to
-
-    def launch():
-        _build.launch(name, p, keep[0].device)
-
-    return launch, out
 
 
 def apply_lut_planes(r, g, b, lut: Union[LutTable, Coarse2Table],

@@ -114,18 +114,10 @@ def put_sharded(devices: Sequence[DeviceLike], *arrays):
 
 
 def make_sharded_render_fn(lut, cfg: RenderConfig,
-                           devices: Sequence[DeviceLike], chain: int = 1):
+                           devices: Sequence[DeviceLike]):
     """A render function ``fn(y, u, v) -> (yq, uq, vq)`` that splits the
     batch axis over `devices`: inputs anywhere (the host or a device),
-    outputs on ``devices[0]``, in frame order.
-
-    chain > 1 renders each chunk that many times on its device, the
-    output feeding the next input, as the JAX package's lax.scan does for
-    its device-resident measurements; it needs a config whose output can
-    feed its input (same depth and subsampling in and out)."""
-    if chain > 1 and (cfg.in_depth != cfg.out_depth
-                      or cfg.in_subsampling != cfg.out_subsampling):
-        raise ValueError("chain>1 needs output geometry == input geometry")
+    outputs on ``devices[0]``, in frame order."""
     devs = [resolve_device(d) for d in devices]
     if not devs:
         raise ValueError("no devices to split the batch over")
@@ -136,18 +128,13 @@ def make_sharded_render_fn(lut, cfg: RenderConfig,
 
     stats = SplitStats(frames=[0] * len(devs))
 
-    def render_chunk(fn, planes):
-        for _ in range(chain):
-            planes = fn(*planes)
-        return planes
-
     def render_part(top, i, fn, dev, stream, planes):
         """Chunk i rendered on its device; on a card, on its own stream,
         with its copy home enqueued."""
         with span("sharding.chunk", top, card=i,
                   frames=int(planes[0].shape[0])):
             if stream is None:
-                return render_chunk(fn, planes)
+                return fn(*planes)
             # the stream waits for the caller's work on the inputs and for
             # their copy (on the destination's current stream from the host)
             stream.wait_stream(torch.cuda.current_stream(home))
@@ -155,7 +142,7 @@ def make_sharded_render_fn(lut, cfg: RenderConfig,
             with torch.cuda.stream(stream):
                 for p in planes:
                     p.record_stream(stream)
-                done = render_chunk(fn, planes)
+                done = fn(*planes)
                 # a copy runs on the source's current stream: this one
                 return [o.to(home, non_blocking=True) for o in done]
 

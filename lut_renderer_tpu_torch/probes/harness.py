@@ -1,8 +1,9 @@
-"""Seeded inputs, the CUDA-event timer and the card's name shared by
-``chip_smoke.py`` and the kernel probes."""
+"""Seeded inputs, the CUDA-event timer, the card's name and the stage
+builds' library shared by ``chip_smoke.py`` and the kernel probes."""
 
 from __future__ import annotations
 
+import functools
 import statistics
 import subprocess
 
@@ -10,9 +11,19 @@ import numpy as np
 import torch
 
 from ..colorcore import Lut3D
+from ..ops import _build
 from ..ops.pixel import render_planes
 
 SEED = 20260
+
+# the stage builds of kernels A and C (planar_probe.cu) and of kernel B
+# (fused420_probe.cu): the production kernels' own code stopped after a
+# stage, in a library apart from the render library
+PROBE_SOURCES = ("planar_probe.cu", "fused420_probe.cu")
+PROBE_ENTRY_POINTS = ("lut3d_io_launch", "lut3d_weights_launch",
+                      "coarse2_io_launch", "coarse2_weights_launch",
+                      "coarse2_coarse_launch", "coarse2_resid_launch",
+                      "fused420_io_launch", "fused420_color_launch")
 
 # kernel B's case matrix (chip_smoke phase 3): RenderConfig overrides,
 # (batch, height, width), the LUT's (size, seed offset from SEED), and the
@@ -149,6 +160,15 @@ def uniform_rgb(seed: int, shape, dev):
                  for _ in range(3))
 
 
+@functools.cache
+def probe_library():
+    """The stage builds' library (PROBE_SOURCES of this package's csrc/),
+    built on first call; the card only."""
+    return _build.build_library(_build.CSRC, PROBE_SOURCES,
+                                PROBE_ENTRY_POINTS, headers=_build.HEADERS,
+                                name="liblut_probes")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
@@ -167,7 +187,7 @@ def time_ms(fn, iters: int, warmup: int = 2, reps: int = 3,
     the replays are timed, so that the host's launch work (which can
     exceed a short kernel's time and leave the card idle between
     launches) stays out of the number. For kernels whose launches are
-    prepared once (ops/fused420.prepared_launch)."""
+    prepared once (kernel_b.prepared_launch, kernel_ac.prepared_launch)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()

@@ -4,7 +4,8 @@
                                                       [--out FILE]
 
 Runs on the card only. Kernels A (exact table) and C (coarse + residual)
-build in stages (ops/lut3d.PROBE_STAGES, tetrahedral, csrc/planar_probe.cu):
+build in stages (STAGES, tetrahedral; csrc/planar_probe.cu, in the probes'
+own library, harness.probe_library):
 
   io       load the planes and store them: the memory floor
   weights  adds the domain map, the cells and the interp's sums over
@@ -23,7 +24,7 @@ RGB that the plain layout hands the LUT for harness.yuv_frames, and
             planes, in turns, moved as float4 (16-byte aligned planes) and
             sample by sample (the planes at an unaligned offset)
   8K        kernel B's io stage on a 7680x4320 420p8 frame
-            (ops/fused420.prepared_launch)
+            (kernel_b.prepared_launch)
 
 These port the TPU ablations of the experiments/ scripts on rows 1-3 of
 the kernel table (PERF.md maps each script to the number that answers
@@ -55,13 +56,15 @@ from pathlib import Path
 
 import torch
 
-from ..ops import _build, fused420, lut3d
+from ..ops import _build, lut3d
 from ..ops.prepare import Coarse2Table, LutTable
 from ..ops.render import RenderConfig
+from . import kernel_b
 from .harness import (
     SEED,
     card_line,
     plain_rgb,
+    probe_library,
     random_lut,
     tie_frames,
     time_ms,
@@ -70,6 +73,12 @@ from .harness import (
 )
 
 TETRA = "tetrahedral"
+# io loads and stores the planes; weights adds the domain map, the cells
+# and the sums over stand-in corners, no table load; coarse and resid
+# (kernel C only) each run one term with its loads; full is the
+# production kernel
+STAGES = ("io", "weights", "coarse", "resid", "full")
+_COARSE2_ONLY_STAGES = ("coarse", "resid")
 # kernels A and C, as another revision builds them
 BASELINE_SOURCES = ("lut3d.cu", "coarse2.cu")
 ENTRY_POINTS = ("lut3d_launch", "coarse2_launch")
@@ -94,6 +103,42 @@ INSTANTIATION_CASES = [(65, tier, interp) for tier in ("coarse2f",
                                                        "coarse2f_tri")
                        for interp in INTERPS if interp != TETRA]
 _LUT_SEED = {33: 0, 65: 265, 97: 297, 129: 329}
+
+
+def entry_point(table, stage: str) -> str:
+    """The library entry that launches kernel A or C (by `table`'s kind) at
+    `stage` of STAGES."""
+    coarse2 = isinstance(table, Coarse2Table)
+    if stage not in STAGES or (stage in _COARSE2_ONLY_STAGES
+                               and not coarse2):
+        raise ValueError(f"kernel {'C' if coarse2 else 'A'} has no stage "
+                         f"{stage!r}")
+    if stage == "full":
+        return lut3d.entry_point(table)
+    return f"{'coarse2' if coarse2 else 'lut3d'}_{stage}_launch"
+
+
+def prepared_launch(r, g, b, table, interp: str = TETRA,
+                    stage: str = "full", lib=None):
+    """(launch, (ro, go, bo)) on CUDA tensors: each ``launch()`` runs
+    kernel A or C at `stage` of STAGES on operands the wrapper checks
+    once, into the same outputs, from `lib`, or by default the render
+    library for full and the probe library for a stage. For timing the
+    kernel apart from the wrapper's host work; it counts no launch. The
+    stages below full are tetrahedral only."""
+    interp = lut3d.canonical_interp(interp)
+    if stage != "full" and interp != TETRA:
+        raise ValueError(f"stage {stage!r} is built for tetrahedral only")
+    name = entry_point(table, stage)
+    if lib is None and stage != "full":
+        lib = probe_library()
+    p, out, keep = lut3d.launch_args(r, g, b, table, interp)
+    keep += out  # the launch holds every tensor p points to
+
+    def launch():
+        _build.launch(name, p, keep[0].device, lib=lib)
+
+    return launch, out
 
 
 def table_of(n: int, tier, dev):
@@ -126,27 +171,14 @@ def stage_times(dev, cases=None) -> dict:
         rgb = planes_of(kind, dev)
         for name in cases or STAGE_CASES:
             table = table_of(*STAGE_CASES[name], dev)
-            stages = [s for s in lut3d.PROBE_STAGES
-                      if s not in ("coarse", "resid")
+            stages = [s for s in STAGES
+                      if s not in _COARSE2_ONLY_STAGES
                       or isinstance(table, Coarse2Table)]
             out.setdefault(name, {})[kind] = {
-                s: time_ms(lut3d.prepared_launch(*rgb, table, TETRA, s)[0],
+                s: time_ms(prepared_launch(*rgb, table, TETRA, s)[0],
                            20, graph=True) for s in stages}
         del rgb
     return out
-
-
-def _launch_with(lib, rgb, table, interp=TETRA):
-    """A launch of `lib`'s kernel for `table`'s kind on operands the
-    current wrapper checks and lays out once; (launch, outputs)."""
-    p, out, keep = lut3d.launch_args(*rgb, table, interp)
-    keep += out
-    name = lut3d.entry_point(table)
-
-    def launch():  # holds every tensor p points to
-        _build.launch(name, p, keep[0].device, lib=lib)
-
-    return launch, out
 
 
 def layout_times(dev) -> dict:
@@ -164,10 +196,9 @@ def layout_times(dev) -> dict:
     for case in LAYOUT_CASES:
         table = table_of(*STAGE_CASES[case], dev)
         for stage in ("io", "full"):
-            vec, want = lut3d.prepared_launch(*paths["vector"], table, TETRA,
-                                              stage)
-            sca, got = lut3d.prepared_launch(*paths["scalar"], table, TETRA,
-                                             stage)
+            vec, want = prepared_launch(*paths["vector"], table, TETRA,
+                                        stage)
+            sca, got = prepared_launch(*paths["scalar"], table, TETRA, stage)
             vec()
             sca()
             if stage == "full":
@@ -186,7 +217,7 @@ def kernel_b_8k(dev) -> dict:
     planes = [torch.from_numpy(p).to(dev)
               for p in yuv_frames(SEED + 8, 1, 4320, 7680)]
     table = table_of(33, None, dev)
-    return {s: time_ms(fused420.prepared_launch(*planes, table, cfg, s)[0],
+    return {s: time_ms(kernel_b.prepared_launch(*planes, table, cfg, s)[0],
                        20, graph=True) for s in ("io", "full")}
 
 
@@ -209,8 +240,8 @@ def compare(dev, baseline) -> dict:
         rgb = planes_of(kind, dev)
         for n, tier, interp in COMPARE_CASES + INSTANTIATION_CASES:
             table = table_of(n, tier, dev)
-            old, want = _launch_with(baseline, rgb, table, interp)
-            new, got = lut3d.prepared_launch(*rgb, table, interp)
+            old, want = prepared_launch(*rgb, table, interp, lib=baseline)
+            new, got = prepared_launch(*rgb, table, interp)
             old()
             new()
             name = f"{'C' if tier else 'A'} {n}^3 {tier or 'exact'} {interp}"

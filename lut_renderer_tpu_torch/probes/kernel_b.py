@@ -7,7 +7,8 @@ Runs on the card only. It ports the JAX package's probes of the fused
 YUV->YUV path (experiments/r5_fused_yuv.py, r3_posty_kernel.py,
 r3_rowphase.py) and of the 33^3 LUT body stage by stage
 (experiments/r6_33cube_floor.py). Kernel B builds in three stages
-(ops/fused420.PROBE_STAGES):
+(STAGES; io and color are csrc/fused420_probe.cu, in the probes' own
+library, harness.probe_library):
 
   io     load, convert, quantise and store; the colour math is the identity
   color  adds the range normalisation, YUV<->RGB, dither and the chroma
@@ -21,8 +22,9 @@ the colour math, full - color the LUT.
 ``--baseline DIR`` names the csrc/ directory of another revision of this
 package that builds kernel B's stages itself (commit 7ef7f79 and later),
 for example ``git archive <rev> lut_renderer_tpu_torch/csrc`` unpacked
-there. Its fused420.cu and fused420_coarse2.cu are built, its stages are
-timed beside the current kernel's, and then the two full kernels run in
+there. Its fused420.cu and fused420_coarse2.cu are built, with its
+fused420_probe.cu where it has one (before it, fused420.cu held the
+stages), its stages are timed beside the current kernel's, and then the two full kernels run in
 turns (baseline, current, current, baseline) on the same planes over
 kernel B's cases (COMPARE_CASES), on ramp, uniform-random and tie-heavy
 frames (harness.tie_frames), with their outputs compared bit for bit. Any
@@ -51,6 +53,7 @@ from .harness import (
     KERNEL_B_CASES,
     SEED,
     card_line,
+    probe_library,
     random_lut,
     tie_frames,
     time_ms,
@@ -58,12 +61,17 @@ from .harness import (
     yuv_frames,
 )
 
-STAGES = fused420.PROBE_STAGES
+# io loads, converts, quantises and stores with the colour math the
+# identity; color adds the range normalisation, YUV<->RGB, dither and
+# downsample; full is the production kernel
+STAGES = ("io", "color", "full")
 # the frames every comparison runs on; the stages are timed on the first two
 FRAMES = {"ramp": yuv_frames, "uniform": uniform_frames, "ties": tie_frames}
 STAGE_FRAMES = ("ramp", "uniform")
 
 BASELINE_SOURCES = ("fused420.cu", "fused420_coarse2.cu")
+# a revision's stage builds, where they are a file apart
+BASELINE_PROBE_SOURCE = "fused420_probe.cu"
 BASELINE_ENTRY_POINTS = ("fused420_launch", "fused420_coarse2_launch",
                          "fused420_io_launch", "fused420_color_launch")
 
@@ -86,18 +94,35 @@ COMPARE_CASES = {
 
 
 def build_baseline(csrc: Path):
-    """The kernel B library of another revision's csrc/ directory."""
-    return _build.build_library(csrc, BASELINE_SOURCES, BASELINE_ENTRY_POINTS,
+    """The kernel B library, stages included, of another revision's csrc/
+    directory."""
+    sources = BASELINE_SOURCES
+    if (csrc / BASELINE_PROBE_SOURCE).exists():
+        sources += (BASELINE_PROBE_SOURCE,)
+    return _build.build_library(csrc, sources, BASELINE_ENTRY_POINTS,
                                 name="libbaseline_kernel_b")
 
 
-def baseline_launch(lib, y, u, v, table, cfg, stage: str = "full"):
-    """(launch, (yo, uo, vo)): ``launch()`` runs the baseline library's
-    kernel B at `stage` on operands the current wrapper checks and lays
-    out once."""
+def entry_point(table, stage: str) -> str:
+    """The library entry that launches kernel B at `stage` of STAGES for
+    `table`'s kind (io and color read no table)."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown kernel B stage {stage!r}")
+    return (fused420.entry_point(table) if stage == "full"
+            else f"fused420_{stage}_launch")
+
+
+def prepared_launch(y, u, v, table, cfg, stage: str = "full", lib=None):
+    """(launch, (yo, uo, vo)) on CUDA tensors: each ``launch()`` runs
+    kernel B at `stage` of STAGES on operands the wrapper checks and lays
+    out once, into the same outputs, from `lib`, or by default the render
+    library for full and the probe library for a stage. For timing the
+    kernel apart from the wrapper's host work; it counts no launch."""
+    name = entry_point(table, stage)
+    if lib is None and stage != "full":
+        lib = probe_library()
     p, out, keep = fused420.launch_args(y, u, v, table, cfg, None)
     keep += out + (table,)  # the launch holds every tensor p points to
-    name = fused420.entry_point(table, stage)
 
     def launch():
         _build.launch(name, p, keep[0].device, lib=lib)
@@ -123,12 +148,11 @@ def stage_times(dev, baseline=None) -> dict:
     out = {}
     for frames in STAGE_FRAMES:
         cfg, planes, table = case_inputs("4K 420p8 33^3", frames, dev)
-        runs = {"current": {s: fused420.prepared_launch(*planes, table, cfg,
-                                                        s)[0]
+        runs = {"current": {s: prepared_launch(*planes, table, cfg, s)[0]
                             for s in STAGES}}
         if baseline is not None:
-            runs["baseline"] = {s: baseline_launch(baseline, *planes, table,
-                                                   cfg, s)[0]
+            runs["baseline"] = {s: prepared_launch(*planes, table, cfg, s,
+                                                   baseline)[0]
                                 for s in STAGES}
         for kernel, fns in runs.items():
             out.setdefault(kernel, {})[frames] = {
@@ -143,8 +167,8 @@ def compare(dev, baseline) -> dict:
     for name in COMPARE_CASES:
         for frames in FRAMES:
             cfg, planes, table = case_inputs(name, frames, dev)
-            old, want = baseline_launch(baseline, *planes, table, cfg)
-            new, got = fused420.prepared_launch(*planes, table, cfg)
+            old, want = prepared_launch(*planes, table, cfg, lib=baseline)
+            new, got = prepared_launch(*planes, table, cfg)
             old()
             new()
             torch.cuda.synchronize()

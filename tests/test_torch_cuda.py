@@ -296,13 +296,16 @@ def test_kernel_b_coarse2_422p10_random_dither(cuda_device):
 
 @pytest.mark.parametrize("stage", ["io", "color", "full"])
 def test_kernel_b_probe_stages_launch(cuda_device, stage):
-    """The stage probe's builds run and count no launch; full equals the
+    """The stage probe's builds (io and color from the probes' library,
+    full from the render library) run and count no launch; full equals the
     production kernel bit for bit."""
+    from lut_renderer_tpu_torch.probes import kernel_b
+
     cfg = RenderConfig()
     lut = LutTable.from_lut3d(random_lut(17, seed=11), cuda_device)
     yuv = to_torch(*planes(16, 2, 16, 256, 8), device=cuda_device)
     before = fused420.launches
-    launch, got = fused420.prepared_launch(*yuv, lut, cfg, stage)
+    launch, got = kernel_b.prepared_launch(*yuv, lut, cfg, stage)
     launch()
     torch.cuda.synchronize()
     assert fused420.launches == before
@@ -386,13 +389,17 @@ def test_kernel_a_129(cuda_device):
     ("A", "io"), ("A", "weights"), ("A", "full"), ("C", "io"),
     ("C", "weights"), ("C", "coarse"), ("C", "resid"), ("C", "full")])
 def test_planar_probe_stages_launch(cuda_device, kind, stage):
-    """The stage probe's builds run and count no launch; io returns its
-    input, full equals the production kernel and coarse + resid equals
-    full, bit for bit."""
+    """The stage probe's builds (from the probes' library; full from the
+    render library) run and count no launch; io returns its input, full
+    equals the production kernel and coarse + resid equals full, bit for
+    bit."""
+    from lut_renderer_tpu_torch.probes import kernel_ac
+
     table = _planar_table(kind, cuda_device)
     rgb = to_torch(*rgb_planes(20, (16, 256)), device=cuda_device)
     before = (lut3d.launches, lut3d.coarse2_launches)
-    launch, got = lut3d.prepared_launch(*rgb, table, "tetrahedral", stage)
+    launch, got = kernel_ac.prepared_launch(*rgb, table, "tetrahedral",
+                                            stage)
     launch()
     torch.cuda.synchronize()
     assert (lut3d.launches, lut3d.coarse2_launches) == before
@@ -403,8 +410,8 @@ def test_planar_probe_stages_launch(cuda_device, kind, stage):
         want = lut3d.apply_lut_planes(*rgb, table)
         assert all(torch.equal(a, e) for a, e in zip(got, want))
     elif stage == "resid":
-        coarse, other = lut3d.prepared_launch(*rgb, table, "tetrahedral",
-                                              "coarse")
+        coarse, other = kernel_ac.prepared_launch(*rgb, table,
+                                                  "tetrahedral", "coarse")
         coarse()
         want = lut3d.apply_lut_planes(*rgb, table)
         assert all(torch.equal(a + c, e)

@@ -1,7 +1,7 @@
 """The frame batch split across devices (lut_renderer_tpu_torch.parallel)
 on a device list that repeats the CPU: bit-equal to the unsharded render
 function for odd and padded batches, on the main and the resize paths,
-chain=2 equal to two applications, against the JAX package's unsharded
+against the JAX package's unsharded
 render within the integer contract (max |d| <= 1 code value on fewer than
 1e-3 of pixels), and the executor's split end to end (mirrors
 tests/test_parallel.py and tests/test_engine_mesh.py)."""
@@ -86,17 +86,6 @@ def test_split_matches_the_jax_unsharded_render(size, precision, depth):
     assert_integer_contract(got, want, f"split {size} {precision} {depth}")
     _equal(got, make_render_fn(lut, RenderConfig(**kw), "cpu")(
         *to_torch(y, u, v)))
-
-
-def test_split_chain_matches_two_applications(lut):
-    cfg = RenderConfig(dither="ordered")
-    y, u, v = to_torch(*planes(8, 4, 16, 64, 8))
-    one = make_sharded_render_fn(lut, cfg, CPUS)
-    two = make_sharded_render_fn(lut, cfg, CPUS, chain=2)
-    _equal(two(y, u, v), one(*one(y, u, v)))
-    with pytest.raises(ValueError, match="chain"):
-        make_sharded_render_fn(lut, RenderConfig(in_depth=10, out_depth=8),
-                               CPUS, chain=2)
 
 
 def test_more_devices_than_frames_leaves_devices_idle(lut):

@@ -14,8 +14,9 @@ lut3d.cu, coarse2.cu), each held against the reference on the CPU.
     interp and tier the wrapper passes reaches the instantiation of its
     own pair.
 (d) The ctypes mirrors of the params equal the C structs; the wrapper's
-    int32 guard, vector-path choice and stage names; the probe imports
-    without jax and without building.
+    int32 guard and vector-path choice; the probes' stage names, and the
+    entries of the render library and of the probes' own; the probe
+    imports without jax and without building.
 
 All are bit-exact: the kernels keep the plain version's f32 operations and
 their order."""
@@ -310,27 +311,73 @@ def test_int32_guard_and_vector_path():
 
 
 def test_stage_entry_points():
+    from lut_renderer_tpu_torch.ops import _build
+    from lut_renderer_tpu_torch.probes import harness, kernel_ac, kernel_b
+
     exact = LutTable.from_lut3d(random_lut(5, seed=1), "cpu")
     big = Coarse2Table.from_lut_table(
         LutTable.from_lut3d(random_lut(49, seed=1), "cpu"), "coarse2f")
-    assert lut3d.entry_point(exact) == "lut3d_launch"
-    assert lut3d.entry_point(big, "resid") == "coarse2_resid_launch"
+    assert kernel_ac.entry_point(exact, "full") == "lut3d_launch"
+    assert kernel_ac.entry_point(big, "resid") == "coarse2_resid_launch"
     with pytest.raises(ValueError):
-        lut3d.entry_point(exact, "coarse")
+        kernel_ac.entry_point(exact, "coarse")
     with pytest.raises(ValueError):
-        lut3d.entry_point(big, "color")
+        kernel_ac.entry_point(big, "color")
+    with pytest.raises(ValueError):
+        kernel_b.entry_point(exact, "weights")
     r = torch.zeros(8)
     with pytest.raises(ValueError, match="tetrahedral"):
-        lut3d.prepared_launch(r, r, r, exact, "trilinear", "io")
-    from lut_renderer_tpu_torch.ops import _build
+        kernel_ac.prepared_launch(r, r, r, exact, "trilinear", "io")
+    # full launches from the render library, a stage from the probes'
+    for probe in (kernel_ac, kernel_b):
+        for table in (exact, big):
+            for stage in probe.STAGES:
+                try:
+                    name = probe.entry_point(table, stage)
+                except ValueError:
+                    assert probe is kernel_ac and table is exact
+                    assert stage in ("coarse", "resid")
+                    continue
+                lib = (_build.ENTRY_POINTS if stage == "full"
+                       else harness.PROBE_ENTRY_POINTS)
+                assert name in lib, (stage, name)
+    assert lut3d.entry_point(big) == "coarse2_launch"
 
-    entries = set(_build.ENTRY_POINTS)
-    for table in (exact, big):
-        for stage in lut3d.PROBE_STAGES:
-            try:
-                assert lut3d.entry_point(table, stage) in entries
-            except ValueError:
-                assert table is exact and stage in ("coarse", "resid")
+
+_EXTERN = re.compile(r'extern "C".*\bint\s+(\w+)\(')
+_MACRO = re.compile(r"#define\s+(\w+)\((\w+),")
+
+
+def _c_entries(path):
+    """The extern "C" functions a CUDA source defines, directly or through
+    a macro of its own."""
+    text = path.read_text()
+    names = _EXTERN.findall(text)
+    for macro, param in _MACRO.findall(text):
+        if param in names:  # the macro's body, not an entry
+            names.remove(param)
+            names += re.findall(rf"^{macro}\((\w+),", text, re.M)
+    return names
+
+
+def test_each_library_defines_exactly_its_entries():
+    """The render library's sources define its entries, each in one file,
+    and nothing else; the probes' sources define exactly their 8 stage
+    entries; every source of csrc/ is in one of the two."""
+    from lut_renderer_tpu_torch.ops import _build
+    from lut_renderer_tpu_torch.probes import harness
+
+    render = {s: _c_entries(_build.CSRC / s) for s in _build.SOURCES}
+    for name in _build.ENTRY_POINTS:
+        assert len([s for s, e in render.items() if name in e]) == 1, name
+    assert sorted(n for e in render.values() for n in e) == sorted(
+        _build.ENTRY_POINTS)
+    probes = [n for s in harness.PROBE_SOURCES
+              for n in _c_entries(_build.CSRC / s)]
+    assert len(probes) == 8
+    assert sorted(probes) == sorted(harness.PROBE_ENTRY_POINTS)
+    assert set(_build.SOURCES) | set(harness.PROBE_SOURCES) == {
+        p.name for p in _build.CSRC.glob("*.cu")}
 
 
 def test_probe_imports_without_jax_or_a_build():

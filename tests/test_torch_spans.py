@@ -102,25 +102,37 @@ def test_nothing_is_recorded_without_a_profiler(monkeypatch, tmp_path):
 
 
 def test_cpu_render_batches_records_nested_spans():
+    """The CPU runs the card's loop: each step of each batch under its
+    call, the take and the pin on the staging thread and the other steps
+    on the loop's, and the first output yielded once the second batch is
+    rendered (one batch in flight)."""
     stats = StageStats()
     _profiled(lambda: list(render_batches(iter(_batches()), _render_fn(),
                                           torch.device("cpu"), stats)))
     recs = spans.records()
     (run,) = [r for r in recs if r.name == "executor.run"]
-    kids = [r for r in recs if r.name != "executor.run"]
-    assert {r.name for r in kids} == {"executor.take", "executor.render"}
-    assert all(r.parent == run.id and r.call == run.id for r in kids)
     assert run.parent is None and run.call == run.id
-    takes = [r.attrs["batch"] for r in kids if r.name == "executor.take"]
-    renders = [r.attrs["batch"] for r in kids if r.name == "executor.render"]
-    assert takes == [0, 1, 2, 3] and renders == [0, 1, 2]  # 4th: the end
+    assert run.thread == threading.get_native_id()
+    kids = [r for r in recs if r.name != "executor.run"]
+    # the take and the stage step also find the end: a fourth span
+    steps = (("take", 4), ("pin", 3), ("stage", 4), ("render", 3),
+             ("out", 3), ("wait", 3))
+    assert {r.name for r in kids} == {f"executor.{s}" for s, _ in steps}
+    for step, n in steps:
+        mine = [r for r in kids if r.name == f"executor.{step}"]
+        assert [r.attrs["batch"] for r in mine] == list(range(n)), step
+        assert all(r.parent == r.call == run.id for r in mine)
+        on_loop = {r.thread == run.thread for r in mine}
+        assert on_loop == {step not in ("take", "pin")}, step
     for r in kids:
         assert run.start_ns <= r.start_ns <= r.end_ns <= run.end_ns
-        assert r.thread == run.thread == threading.get_native_id()
+    stages = [r for r in kids if r.name == "executor.stage"]
+    assert all(isinstance(r.attrs["ready"], bool) for r in stages[:3])
+    assert "ready" not in stages[3].attrs
     first = run.attrs["first_yield_ns"]
     assert 0 < first < run.end_ns - run.start_ns
-    render0 = next(r for r in kids if r.name == "executor.render")
-    assert first >= render0.end_ns - run.start_ns
+    render1 = [r for r in kids if r.name == "executor.render"][1]
+    assert first >= render1.end_ns - run.start_ns
     assert spans.dropped() == 0
 
 
@@ -128,11 +140,19 @@ def test_stage_stats_are_the_sums_of_the_spans():
     stats = StageStats()
     _profiled(lambda: list(render_batches(iter(_batches()), _render_fn(),
                                           torch.device("cpu"), stats)))
-    for step in ("take", "render"):
-        total = sum(r.end_ns - r.start_ns for r in spans.records()
-                    if r.name == f"executor.{step}")
-        assert getattr(stats, f"{step}_s") == pytest.approx(total * 1e-9)
-    assert stats.stage_s == stats.out_s == stats.wait_s == 0.0
+    recs = spans.records()
+    # stage_s sums the staging thread's pins
+    for field, step, n in (("take", "take", 4), ("stage", "pin", 3),
+                           ("render", "render", 3), ("out", "out", 3),
+                           ("wait", "wait", 3)):
+        mine = [r.end_ns - r.start_ns for r in recs
+                if r.name == f"executor.{step}"]
+        assert len(mine) == n, step
+        assert getattr(stats, f"{field}_s") == pytest.approx(sum(mine) * 1e-9)
+    assert stats.batches == 3
+    assert stats.staged_ready == sum(
+        r.attrs.get("ready", False) for r in recs
+        if r.name == "executor.stage")
 
 
 def test_records_from_a_second_thread_are_kept():

@@ -1,16 +1,28 @@
 """The device loop's staging thread (``engine.executor.stage_ahead``) on the
 CPU, with plain staging functions: order and counts, how far it runs
 ahead, errors raised on the caller's thread after the items before them,
-closing while the source blocks, its spans and counters."""
+closing while the source blocks, its spans and counters. Then
+``render_batches`` on the CPU, which runs the card's loop through it:
+batches staged ahead on the thread, every held output that of its own
+batch, one batch in flight, and a source's error after its batches."""
 
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
 from lut_renderer_tpu_torch import spans
-from lut_renderer_tpu_torch.engine.executor import StageStats, stage_ahead
+from lut_renderer_tpu_torch.engine.executor import (StageStats,
+                                                    render_batches,
+                                                    stage_ahead)
+from lut_renderer_tpu_torch.ops.render import RenderConfig, make_render_fn
+
+from torch_parity import planes, random_lut
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 JOIN_S = 10.0
 
@@ -171,6 +183,18 @@ def test_close_stops_a_thread_waiting_on_the_hand_off():
     assert len(staged) <= 3
 
 
+def _profiled(fn):
+    with spans.span("between"):
+        pass
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        return fn()
+    finally:
+        prof.stop()
+
+
 def test_spans_run_on_the_staging_thread_under_the_call():
     stats = StageStats()
 
@@ -179,15 +203,7 @@ def test_spans_run_on_the_staging_thread_under_the_call():
             out = list(stage_ahead(iter(_items(3)), _stage, run, stats))
         return out
 
-    with spans.span("between"):
-        pass
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU])
-    prof.start()
-    try:
-        run_ahead()
-    finally:
-        prof.stop()
+    _profiled(run_ahead)
     recs = spans.records()
     (run,) = [r for r in recs if r.name == "executor.run"]
     takes = [r for r in recs if r.name == "executor.take"]
@@ -201,3 +217,98 @@ def test_spans_run_on_the_staging_thread_under_the_call():
         sum(r.end_ns - r.start_ns for r in takes) * 1e-9)
     assert stats.stage_s == pytest.approx(
         sum(r.end_ns - r.start_ns for r in pins) * 1e-9)
+
+
+def _host_batches(n):
+    """n host batches of 2 frames whose planes differ, the last one short."""
+    return [(*planes(40 + s, 2, 16, 32, 8), 2 if s < n - 1 else 1)
+            for s in range(n)]
+
+
+def test_render_batches_on_the_cpu_stages_on_its_own_thread():
+    """The staging thread takes and pins every batch, and a batch it
+    staged while the loop rendered the one before counts as ready."""
+    n = 5
+    asked = []
+
+    def source():
+        for i, batch in enumerate(_host_batches(n)):
+            asked.append(i)
+            yield batch
+        asked.append(n)   # the end
+
+    fn = make_render_fn(None, RenderConfig(apply_lut=False), "cpu")
+    rendered = [0]
+
+    def render(*planes):
+        i = rendered[0]
+        rendered[0] += 1
+        # the thread has handed batch i + 1 over once it asks the source
+        # for the one after
+        _until(lambda: len(asked) >= min(i + 3, n + 1))
+        return fn(*planes)
+
+    stats = StageStats()
+    outs = _profiled(lambda: list(render_batches(source(), render, CPU,
+                                                 stats)))
+    assert [o[3] for o in outs] == [b[3] for b in _host_batches(n)]
+    assert stats.batches == n and stats.staged_ready >= n - 1
+    recs = spans.records()
+    (run,) = [r for r in recs if r.name == "executor.run"]
+    pins = [r for r in recs if r.name == "executor.pin"]
+    assert [r.attrs["batch"] for r in pins] == list(range(n))
+    assert all(r.thread != run.thread for r in pins)
+    assert run.thread == threading.get_native_id()
+
+
+def test_render_batches_on_the_cpu_keeps_every_output():
+    """A consumer that holds every output of batches with different planes
+    gets, for each batch, what the render function gives on that batch
+    alone; batch N comes out once batch N + 1 is rendered."""
+    batches = _host_batches(9)
+    fn = make_render_fn(random_lut(17, seed=6),
+                        RenderConfig(dither="ordered"), "cpu")
+    rendered = [0]
+
+    def render(*planes):
+        rendered[0] += 1
+        return fn(*planes)
+
+    got, renders_before = [], []
+    for out in render_batches(iter(batches), render, CPU):
+        got.append(out)
+        renders_before.append(rendered[0])
+    assert renders_before == [2, 3, 4, 5, 6, 7, 8, 9, 9]
+    assert [g[3] for g in got] == [b[3] for b in batches]
+    for g, b in zip(got, batches):
+        alone = fn(*(torch.from_numpy(a) for a in b[:3]))
+        for a, e in zip(g[:3], alone):
+            assert isinstance(a, np.ndarray)
+            assert np.array_equal(a, e.numpy())
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_render_batches_on_the_cpu_raises_a_source_error_after_its_batches(k):
+    class Broken(Exception):
+        pass
+
+    takers = set()
+
+    def source():
+        for i, batch in enumerate(_host_batches(7)):
+            takers.add(threading.current_thread())
+            if i == k:
+                raise Broken(i)
+            yield batch
+
+    fn = make_render_fn(None, RenderConfig(apply_lut=False), "cpu")
+    got = []
+    with pytest.raises(Broken) as info:
+        for out in render_batches(source(), fn, CPU):
+            got.append(out[3])
+    assert got == [2] * k
+    assert info.value.args == (k,)
+    # the source ran on the staging thread, which has retired
+    (taker,) = takers
+    assert taker.name == "executor.stage_ahead"
+    assert _joined([taker])
