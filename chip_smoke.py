@@ -52,7 +52,13 @@ through the port's CLI. Phases:
                          the resample (bit-equal to its plain version;
                          beside its bound, the plain version's time and
                          the dense torch.matmul pair's, library_ms), the
-                         rest, H2D and D2H
+                         rest, H2D and D2H; the plain layout's unpack and
+                         pack kernels' launches (2 a batch)
+  6P. pixel kernels      the unpack and pack kernels (csrc/pixel.cu)
+                         bit-equal to their plain versions: 4K -> 1080p x 2
+                         (unpack at 4K, pack at 1080p) and 1080p x 8; times
+                         beside their byte bounds and the torch chain's on
+                         the same planes
   6T. resample precision resample_plane against a float64 product, then
                          again with allow_tf32=True: bit-equal
   7. split               make_sharded_render_fn over two streams of card 0
@@ -67,14 +73,14 @@ through the port's CLI. Phases:
                          policy from a synthetic probe result) through the
                          device loop over seeded frames: the 4K 422p10
                          pro master (kernel B) and its delivery stage (no
-                         LUT, the plain layout's torch ops, on the master's
-                         frames), 1080p 65^3 10-bit -> 8-bit ordered
-                         dither, 8K 10-bit at batch 1 (and split over two
-                         streams of card 0, bit-equal), 1080p trilinear,
-                         1080p full range; fps (cold pass apart), per batch
-                         H2D / render / D2H, kernel B's launches, peak
-                         device memory, the first batch against its plain
-                         version
+                         LUT, the plain layout's unpack and pack kernels,
+                         on the master's frames), 1080p 65^3 10-bit ->
+                         8-bit ordered dither, 8K 10-bit at batch 1 (and
+                         split over two streams of card 0, bit-equal),
+                         1080p trilinear, 1080p full range; fps (cold pass
+                         apart), per batch H2D / render / D2H, kernel B's
+                         launches, peak device memory, the first batch
+                         against its plain version
 
 Any failure raises and exits non-zero. The one thing caught is hostio's
 own report that this machine has no FFmpeg libraries (no cv2, or
@@ -185,7 +191,8 @@ def main() -> int:
         _pick_batch_size,
         render_batches,
     )
-    from lut_renderer_tpu_torch.ops import _build, fused420, lut3d, resample
+    from lut_renderer_tpu_torch.ops import _build, fused420, lut3d, pixel, \
+        resample
     from lut_renderer_tpu_torch.ops.prepare import Coarse2Table, LutTable
     from lut_renderer_tpu_torch.ops.pixel import render_planes
     from lut_renderer_tpu_torch.ops.render import RenderConfig, make_render_fn
@@ -510,7 +517,9 @@ def main() -> int:
     plains = ((fused420, "render_fused420_reference"),
               (lut3d, "apply_lut_planes_reference"),
               (lut3d, "apply_lut_planes_coarse2_reference"),
-              (resample, "resample_plane_reference"))
+              (resample, "resample_plane_reference"),
+              (pixel, "unpack_planes_reference"),
+              (pixel, "pack_planes_reference"))
     counters = {"A": (lut3d, "launches"), "C": (lut3d, "coarse2_launches"),
                 "B": (fused420, "launches"),
                 "B coarse2": (fused420, "coarse2_launches")}
@@ -741,7 +750,7 @@ def main() -> int:
             pass
         cold = n_frames / (time.perf_counter() - t0)
         saved = start_path()
-        rs_before = resample.launches
+        rs_before, px_before = resample.launches, pixel.launches
         first, n_out = None, 0
         t0 = time.perf_counter()
         for o in render_batches(iter(bats), fn, dev):
@@ -756,12 +765,16 @@ def main() -> int:
         wall = time.perf_counter() - t0
         counts = end_path(saved)
         rs_launches = resample.launches - rs_before
+        px_launches = pixel.launches - px_before
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         if counts != {"A": len(bats), "C": 0, "B": 0, "B coarse2": 0}:
             fail(f"{what} launches {counts}, expected A={len(bats)}")
         if rs_launches != 3 * len(bats):
             fail(f"{what} resample launches {rs_launches}, expected "
                  f"{3 * len(bats)}")
+        if px_launches != 2 * len(bats):
+            fail(f"{what} pixel kernel launches {px_launches}, expected "
+                 f"{2 * len(bats)}")
         if n_out != n_frames:
             fail(f"{what} returned {n_out} of {n_frames} frames")
         # the plain version: kernel A's plain twin, the resample's
@@ -823,6 +836,7 @@ def main() -> int:
                    resample_ms=rs_ms, resample_plain_ms=rs_plain_ms,
                    resample_library_ms=rs_lib_ms,
                    resample_launches=rs_launches,
+                   pixel_launches=px_launches,
                    rest_ms=total_ms - a_ms - rs_ms,
                    render_fn_ms=total_ms, h2d_ms=h2d, d2h_ms=d2h,
                    resample_dense_gflop=dense_flops / 1e9,
@@ -842,7 +856,8 @@ def main() -> int:
               f"layout "
               f"{rec['rest_ms']:.3f} ms (render fn {total_ms:.3f}), H2D "
               f"{h2d:.3f} ms, D2H {d2h:.3f} ms; first batch vs plain "
-              f"max|d|={d:.3g}; launches {counts}, resample {rs_launches}; "
+              f"max|d|={d:.3g}; launches {counts}, resample {rs_launches}, "
+              f"pixel {px_launches}; "
               f"peak device memory "
               f"{peak_gb:.2f} GB; card {card}", flush=True)
         return rec
@@ -858,6 +873,69 @@ def main() -> int:
         "4K->1080p error diffusion": resize_path(
             "4K->1080p error diffusion", (3840, 2160), (1920, 1080), 4,
             SEED + 63, dither="error_diffusion_host"),
+    }
+
+    # ---- 6P. the plain layout's unpack and pack kernels -------------------
+    mark("6P")
+
+    def pixel_case(what, b, in_hw, out_hw, seed):
+        """The unpack of b seeded 420p8 frames at in_hw and the pack of
+        RGB planes at out_hw (the resample of the unpack's, as on a resize
+        path): each kernel bit-equal to its plain version, its time
+        (launches prepared once, replayed from a CUDA graph) beside its
+        byte bound, and the torch chain's time on the same planes."""
+        (h, w), (oh, ow) = in_hw, out_hw
+        cfg = main_cfg
+        y, u, v = (torch.from_numpy(p).to(dev)
+                   for p in yuv_frames(seed, b, h, w))
+        up, rgb, _keep_up = pixel.unpack_args(y, u, v, cfg)
+        _build.launch("pixel_unpack_launch", up, dev)
+        if not all(torch.equal(a, e) for a, e in zip(
+                rgb, pixel.unpack_planes_reference(y, u, v, cfg))):
+            fail(f"pixel {what}: the unpack kernel differs from its plain "
+                 f"version")
+        if (oh, ow) != (h, w):
+            bv, bh = bands_on((h, w), (ow, oh), dev)
+            small = tuple(resample_plane(t, bv, bh) for t in rgb)
+        else:
+            small = rgb
+        pk, yuv, _keep_pk = pixel.pack_args(*small, cfg)
+        _build.launch("pixel_pack_launch", pk, dev)
+        if not all(torch.equal(a, e) for a, e in zip(
+                yuv, pixel.pack_planes_reference(*small, cfg))):
+            fail(f"pixel {what}: the pack kernel differs from its plain "
+                 f"version")
+        up_ms = time_ms(lambda: _build.launch("pixel_unpack_launch", up, dev),
+                        10, graph=True)
+        pk_ms = time_ms(lambda: _build.launch("pixel_pack_launch", pk, dev),
+                        10, graph=True)
+        chain_up_ms = time_ms(
+            lambda: pixel.unpack_planes_reference(y, u, v, cfg), 3)
+        chain_pk_ms = time_ms(
+            lambda: pixel.pack_planes_reference(*small, cfg), 3)
+        # 8-bit 4:2:0 codes (1.5 bytes a pixel) and f32 RGB (12), each
+        # read or written once
+        up_bound = bound(b * h * w * (1.5 + 12), 0)[0]
+        pk_bound = bound(b * oh * ow * (12 + 1.5), 0)[0]
+        rec = dict(batch=b, unpack_ms=up_ms, pack_ms=pk_ms,
+                   ms=up_ms + pk_ms, unpack_bound_ms=up_bound,
+                   pack_bound_ms=pk_bound, bound_ms=up_bound + pk_bound,
+                   share=(up_bound + pk_bound) / (up_ms + pk_ms),
+                   chain_unpack_ms=chain_up_ms, chain_pack_ms=chain_pk_ms,
+                   chain_ms=chain_up_ms + chain_pk_ms)
+        print(f"phase 6P pixel kernels {what}: unpack {up_ms:.4f} ms (bound "
+              f"{up_bound:.4f}), pack {pk_ms:.4f} ms (bound {pk_bound:.4f}),"
+              f" together {rec['ms']:.4f} ms against {rec['bound_ms']:.4f} "
+              f"({rec['share']:.1%}); the torch chain on the same planes: "
+              f"unpack {chain_up_ms:.3f} ms, pack {chain_pk_ms:.3f} ms; "
+              f"bit-equal to the plain versions; card {card}", flush=True)
+        return rec
+
+    pixel_paths = {
+        "4K->1080p x2": pixel_case("4K->1080p x2", 2, (2160, 3840),
+                                   (1080, 1920), SEED + 64),
+        "1080p x8": pixel_case("1080p x8", 8, (1080, 1920), (1080, 1920),
+                               SEED + 65),
     }
 
     # ---- 6T. the resample's precision, and TF32 invariance ---------------
@@ -1229,6 +1307,17 @@ def main() -> int:
             "batch", "resample_ms", "resample_plain_ms",
             "resample_library_ms", "resample_bound_ms", "resample_share")}
             for k, v in rs_paths.items()}})
+    px_main = pixel_paths["4K->1080p x2"]
+    kernels.append({
+        "name": "pixel (unpack + pack)", "route": "cuda",
+        "source": "lut_renderer_tpu_torch/csrc/pixel.cu",
+        "replaces": "none: lut_renderer_tpu/ops/pixel.py's elementwise ops "
+                    "around the LUT, left to XLA",
+        "launches": sum(v["pixel_launches"] for v in resize.values()),
+        "max_abs_err": 0.0, "ms": px_main["ms"],
+        "plain_ms": px_main["chain_ms"], "bound_ms": px_main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "share": px_main["share"],
+        "paths": pixel_paths})
     print(json.dumps({"main_path_fps": fps, "cold_pass_fps": cold_fps,
                       "frames": n_frames,
                       "batch": bsz, "h2d_ms": h2d_ms, "d2h_ms": d2h_ms,

@@ -34,10 +34,11 @@ BUILD_DIR = _PKG / "build"
 # the render library: the kernels a render path launches, and nothing else
 # (the stage probes build their own, probes/harness.probe_library)
 SOURCES = ("lut3d.cu", "coarse2.cu", "fused420.cu", "fused420_coarse2.cu",
-           "resample.cu")
+           "resample.cu", "pixel.cu")
 HEADERS = ("lut_interp.cuh", "planar_lut.cuh", "fused420.cuh")
 ENTRY_POINTS = ("lut3d_launch", "coarse2_launch", "fused420_launch",
-                "fused420_coarse2_launch", "resample_launch")
+                "fused420_coarse2_launch", "resample_launch",
+                "pixel_unpack_launch", "pixel_pack_launch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",

@@ -6,21 +6,45 @@ results round the same way and integer planes come out bit-equal. The
 matrix math is colorcore.matrices' formulas op for op, each division by a
 constant through ``fdiv``, so that the card rounds as the CPU and NumPy do.
 
-These run as plain tensor ops on either device: they are the glue the JAX
-package leaves to XLA. The fused kernel (ops.fused420) does the same work
-in one pass on the main path.
+These are the glue the JAX package leaves to XLA. ``render_planes`` runs
+them as plain tensor ops on either device: the CPU's plain layout, and the
+value contract of the kernels that do the same work. The fused kernel
+(ops.fused420) does it in one pass on the main path; on a CUDA device the
+plain layout (``render_plain``) runs it as two hand-written kernels
+(csrc/pixel.cu) around the LUT step and the resample:
+
+* the unpack, ``unpack_planes``: integer planes -> planar f32 RGB at the
+  luma size, render_planes' steps before its LUT call;
+* the pack, ``pack_planes``: planar f32 RGB -> the output planes, its
+  steps after the resample (integer planes, or an error-diffusion job's
+  float code values).
+
+Each is one launch whose constants travel in a ctypes params struct, so
+the render call enqueues its work without waiting for the card, and each
+equals its plain version (``unpack_planes_reference``,
+``pack_planes_reference``) bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import types
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from ..colorcore import matrices as cm
 from ..colorcore.dither import bayer_offsets
 
+from . import _build
+
 _U32 = 0xFFFFFFFF
+
+# launches of the unpack and pack kernels by the plain layout on CUDA
+# tensors, 2 a batch (reset by callers that check which path ran)
+launches = 0
 
 
 def fdiv(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -220,3 +244,281 @@ def render_planes(y, u, v, cfg, lut_fn: LutFn = None,
     return (quantize_plane(yo, cfg.out_depth, cfg.dither, plane_seed=1),
             quantize_plane(uo, cfg.out_depth, cfg.dither, plane_seed=2),
             quantize_plane(vo, cfg.out_depth, cfg.dither, plane_seed=3))
+
+
+# ---------------------------------------------------------------------------
+# the two kernels of the plain layout on a CUDA device (csrc/pixel.cu)
+# ---------------------------------------------------------------------------
+
+_SHIFTS = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}  # (x, y)
+# cfg.dither -> the pack's dither; error diffusion runs on the host
+_DITHERS = {"none": 0, "ordered": 1, "random": 2, "error_diffusion_host": 0}
+# the pack's output planes: uint8, uint16, or float32 code values
+# unquantised (an error-diffusion job's, which the host quantises)
+_FORMATS = (torch.uint8, torch.uint16, torch.float32)
+_MAX_PIXELS = (1 << 31) - 1  # the kernels index in int32
+
+
+def unpack_planes_reference(y, u, v, cfg):
+    """Plain version of the unpack kernel, on any device: render_planes'
+    steps before its LUT call."""
+    yf, uf, vf = (t.to(torch.float32) for t in (y, u, v))
+    yf, uf, vf = range_normalize(yf, uf, vf, cfg.in_depth, cfg.in_full_range,
+                                 cfg.work_full_range)
+    if cfg.requantize_intermediate and cfg.in_full_range != cfg.work_full_range:
+        maxv = float((1 << cfg.in_depth) - 1)
+        yf, uf, vf = (torch.clip(torch.floor(t + 0.5), 0, maxv)
+                      for t in (yf, uf, vf))
+    uf, vf = _upsample(uf, vf, cfg.in_subsampling, cfg.chroma_up)
+    return yuv_planes_to_rgb(yf, uf, vf, cfg.matrix_in, cfg.in_depth,
+                             cfg.work_full_range)
+
+
+def pack_planes_reference(r, g, b, cfg):
+    """Plain version of the pack kernel, on any device: render_planes'
+    steps after its resample."""
+    yo, uo, vo = rgb_to_yuv_planes(r, g, b, cfg.matrix_out, cfg.out_depth,
+                                   cfg.out_full_range)
+    uo, vo = _downsample(uo, vo, cfg.out_subsampling)
+    if cfg.dither == "error_diffusion_host":
+        return yo, uo, vo
+    return tuple(quantize_plane(p, cfg.out_depth, cfg.dither, plane_seed=seed)
+                 for seed, p in ((1, yo), (2, uo), (3, vo)))
+
+
+class _UnpackParams(ctypes.Structure):
+    """Mirror of PixelUnpackParams in csrc/pixel.cu."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in ("y", "u", "v", "r", "g", "b")]
+        + [(name, ctypes.c_int) for name in
+           ("units", "height", "width", "in16", "sx", "sy", "bilinear",
+            "normalize", "requant")]
+        + [(name, ctypes.c_float) for name in
+           ("norm_ysub", "norm_ymul", "norm_yadd", "norm_cmid", "norm_cmul",
+            "maxv_in", "yoff", "yscale", "cmid", "cscale", "crv", "cbu", "gv",
+            "gu")]
+    )
+
+
+class _PackParams(ctypes.Structure):
+    """Mirror of PixelPackParams in csrc/pixel.cu."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in
+         ("r", "g", "b", "y", "u", "v", "bayer")]
+        + [(name, ctypes.c_int) for name in
+           ("units", "height", "width", "format", "sx", "sy", "dither")]
+        + [(name, ctypes.c_float) for name in
+           ("kr", "kg", "kb", "crv", "cbu", "yoff", "yscale", "cmid",
+            "cscale", "maxv")]
+    )
+
+
+def _shifts(subsampling: str) -> Tuple[int, int]:
+    if subsampling not in _SHIFTS:
+        raise ValueError(f"the pixel kernels take {sorted(_SHIFTS)} chroma, "
+                         f"got {subsampling!r}")
+    return _SHIFTS[subsampling]
+
+
+def _check_depth(depth: int) -> None:
+    if not 8 <= depth <= 16:
+        raise ValueError(f"the pixel kernels take 8 to 16 bits, got {depth}")
+
+
+@functools.lru_cache(maxsize=64)
+def unpack_constants(cfg) -> types.MappingProxyType:
+    """The unpack kernel's per-config fields, computed in double as
+    render_planes computes its Python scalars (ctypes rounds each to f32
+    once, as PyTorch rounds a scalar operand). Read-only: the cache hands
+    the same mapping to every caller. Raises on a config the kernel does
+    not take."""
+    sx, sy = _shifts(cfg.in_subsampling)
+    if cfg.in_subsampling == "420" and cfg.chroma_up not in ("nearest",
+                                                             "bilinear"):
+        raise ValueError(f"unknown chroma upsample mode {cfg.chroma_up!r}")
+    _check_depth(cfg.in_depth)
+    normalize = cfg.in_full_range != cfg.work_full_range
+    shift = float(1 << (cfg.in_depth - 8))
+    c_mid = float(1 << (cfg.in_depth - 1))
+    if cfg.in_full_range and not cfg.work_full_range:
+        ysub, ymul, yadd, cmul = 0.0, 219.0 / 255.0, 16.0 * shift, 224.0 / 255.0
+    else:
+        ysub, ymul, yadd, cmul = 16.0 * shift, 255.0 / 219.0, 0.0, 255.0 / 224.0
+    kr, kg, kb, crv, cbu = cm.yuv_rgb_coeffs(cfg.matrix_in)
+    yoff, yscale, cmid, cscale = cm._range_params(cfg.in_depth,
+                                                  cfg.work_full_range)
+    return types.MappingProxyType(dict(
+        sx=sx, sy=sy,
+        bilinear=int(cfg.in_subsampling == "420"
+                     and cfg.chroma_up == "bilinear"),
+        normalize=int(normalize),
+        requant=int(normalize and bool(cfg.requantize_intermediate)),
+        norm_ysub=ysub, norm_ymul=ymul, norm_yadd=yadd, norm_cmid=c_mid,
+        norm_cmul=cmul, maxv_in=float((1 << cfg.in_depth) - 1),
+        yoff=yoff, yscale=yscale, cmid=cmid, cscale=cscale, crv=crv, cbu=cbu,
+        gv=kr * crv / kg, gu=kb * cbu / kg))
+
+
+@functools.lru_cache(maxsize=64)
+def pack_constants(cfg) -> types.MappingProxyType:
+    """The pack kernel's per-config fields, as unpack_constants: an
+    error-diffusion job writes float32 planes (``format`` 2) and no dither.
+    Raises on a config the kernel does not take."""
+    sx, sy = _shifts(cfg.out_subsampling)
+    if cfg.dither not in _DITHERS:
+        raise ValueError(f"the pack kernel takes dither {sorted(_DITHERS)}, "
+                         f"got {cfg.dither!r}")
+    _check_depth(cfg.out_depth)
+    fmt = 2 if cfg.dither == "error_diffusion_host" else int(cfg.out_depth > 8)
+    kr, kg, kb, crv, cbu = cm.yuv_rgb_coeffs(cfg.matrix_out)
+    yoff, yscale, cmid, cscale = cm._range_params(cfg.out_depth,
+                                                  cfg.out_full_range)
+    return types.MappingProxyType(dict(
+        format=fmt, sx=sx, sy=sy, dither=_DITHERS[cfg.dither], kr=kr, kg=kg,
+        kb=kb, crv=crv, cbu=cbu, yoff=yoff, yscale=yscale, cmid=cmid,
+        cscale=cscale, maxv=float((1 << cfg.out_depth) - 1)))
+
+
+def _frames(shape, what: str) -> int:
+    """Frames of a (..., H, W) stack; raises at 2^31 pixels or more."""
+    frames = int(np.prod(shape[:-2], dtype=np.int64))
+    if frames * shape[-2] * shape[-1] > _MAX_PIXELS:
+        raise ValueError(f"the {what} kernel takes at most {_MAX_PIXELS} "
+                         f"pixels a launch (int32 indices), got "
+                         f"{tuple(shape)}; split the batch")
+    return frames
+
+
+def _site_shape(shape, sx: int, sy: int, what: str):
+    """(..., H >> sy, W >> sx) for planes of `shape`, which must cover
+    whole chroma sites."""
+    if len(shape) < 2:
+        raise ValueError(f"the {what} kernel takes (..., H, W) planes, got "
+                         f"{tuple(shape)}")
+    h, w = shape[-2:]
+    if h % (1 << sy) or w % (1 << sx):
+        raise ValueError(f"the {what} kernel takes {h}x{w} planes only in "
+                         f"whole chroma sites of {1 << sy}x{1 << sx}")
+    return tuple(shape[:-2]) + (h >> sy, w >> sx)
+
+
+def unpack_args(y, u, v, cfg):
+    """Check the integer planes for the unpack kernel and allocate its RGB
+    planes: (params, (r, g, b), keep). ``keep`` holds every tensor the
+    params point to; it must outlive the launch."""
+    k = unpack_constants(cfg)
+    if y.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"the unpack kernel takes uint8/uint16 planes, got "
+                         f"{y.dtype}")
+    chroma = _site_shape(y.shape, k["sx"], k["sy"], "unpack")
+    for t in (u, v):
+        if t.device != y.device or t.dtype != y.dtype \
+                or tuple(t.shape) != chroma:
+            raise ValueError(f"the unpack kernel takes {cfg.in_subsampling} "
+                             f"chroma planes of {chroma} {y.dtype} on "
+                             f"{y.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    frames = _frames(y.shape, "unpack")
+    y, u, v = (t.contiguous() for t in (y, u, v))
+    r, g, b = (torch.empty(y.shape, dtype=torch.float32, device=y.device)
+               for _ in range(3))
+    h, w = y.shape[-2:]
+    p = _UnpackParams(
+        y=y.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), r=r.data_ptr(),
+        g=g.data_ptr(), b=b.data_ptr(),
+        units=frames * chroma[-2] * chroma[-1], height=h, width=w,
+        in16=int(y.dtype == torch.uint16), **k)
+    return p, (r, g, b), (y, u, v)
+
+
+def pack_args(r, g, b, cfg, bayer=None):
+    """Check the RGB planes for the pack kernel and allocate its output
+    planes: (params, (y, u, v), keep). ``bayer``: the device's 16x16
+    ordered-dither offsets (ops/fused420.bayer_tensor), made here when
+    None and the dither is ordered."""
+    k = pack_constants(cfg)
+    for t in (g, b):
+        if t.device != r.device or t.shape != r.shape:
+            raise ValueError("the pack kernel takes three planes of one "
+                             "shape on one device")
+    if any(t.dtype != torch.float32 for t in (r, g, b)):
+        raise ValueError("the pack kernel takes float32 planes")
+    chroma = _site_shape(r.shape, k["sx"], k["sy"], "pack")
+    frames = _frames(r.shape, "pack")
+    dev = r.device
+    bayer_ptr = None
+    if k["dither"] == _DITHERS["ordered"]:
+        if bayer is None:
+            from .fused420 import bayer_tensor
+
+            bayer = bayer_tensor(dev)
+        if bayer.device != dev or bayer.dtype != torch.float32 \
+                or tuple(bayer.shape) != (16, 16) \
+                or not bayer.is_contiguous():
+            raise ValueError(f"the Bayer offsets must be a contiguous "
+                             f"float32 (16, 16) tensor on {dev}")
+        bayer_ptr = bayer.data_ptr()
+    r, g, b = (t.contiguous() for t in (r, g, b))
+    out_dt = _FORMATS[k["format"]]
+    yo = torch.empty(r.shape, dtype=out_dt, device=dev)
+    uo, vo = (torch.empty(chroma, dtype=out_dt, device=dev) for _ in range(2))
+    h, w = r.shape[-2:]
+    p = _PackParams(
+        r=r.data_ptr(), g=g.data_ptr(), b=b.data_ptr(), y=yo.data_ptr(),
+        u=uo.data_ptr(), v=vo.data_ptr(), bayer=bayer_ptr,
+        units=frames * chroma[-2] * chroma[-1], height=h, width=w, **k)
+    return p, (yo, uo, vo), (r, g, b, bayer)
+
+
+def _launch(entry: str, p, device) -> None:
+    global launches
+    if p.units:
+        _build.launch(entry, p, device)
+        launches += 1
+
+
+def unpack_planes(y, u, v, cfg):
+    """Integer (y, u, v) planes at cfg.in_depth with cfg.in_subsampling
+    chroma -> (r, g, b) float32 planes at the luma size: the unpack kernel
+    on CUDA tensors (raising on what it does not take), the plain version
+    on CPU tensors."""
+    if y.device.type == "cuda":
+        p, out, _keep = unpack_args(y, u, v, cfg)
+        _launch("pixel_unpack_launch", p, y.device)
+        return out
+    if y.device.type != "cpu":
+        raise ValueError(f"unsupported device {y.device}")
+    return unpack_planes_reference(y, u, v, cfg)
+
+
+def pack_planes(r, g, b, cfg, bayer=None):
+    """Float32 (r, g, b) planes -> (y, u, v) planes at cfg.out_depth with
+    cfg.out_subsampling chroma: integer planes dithered as cfg.dither, or
+    an error-diffusion job's float code values. The pack kernel on CUDA
+    tensors (``bayer``: the device's ordered-dither offsets; raising on
+    what it does not take), the plain version on CPU tensors."""
+    if r.device.type == "cuda":
+        p, out, _keep = pack_args(r, g, b, cfg, bayer)
+        _launch("pixel_pack_launch", p, r.device)
+        return out
+    if r.device.type != "cpu":
+        raise ValueError(f"unsupported device {r.device}")
+    return pack_planes_reference(r, g, b, cfg)
+
+
+def render_plain(y, u, v, cfg, lut_fn: LutFn = None, resize_fn: LutFn = None,
+                 bayer=None):
+    """The plain layout on the planes' device: render_planes on the CPU;
+    on a CUDA device the same function as the unpack kernel, `lut_fn`,
+    `resize_fn` and the pack kernel, bit-equal. ``bayer``: the device's
+    ordered-dither offsets, for the pack."""
+    if y.device.type != "cuda":
+        return render_planes(y, u, v, cfg, lut_fn, resize_fn)
+    r, g, b = unpack_planes(y, u, v, cfg)
+    if lut_fn is not None:
+        r, g, b = lut_fn(r, g, b)
+    if resize_fn is not None:
+        r, g, b = resize_fn(r, g, b)
+    return pack_planes(r, g, b, cfg, bayer)

@@ -2,7 +2,8 @@
 
 Counterpart of lut_renderer_tpu/ops/render.py. ``render_yuv_frame`` keeps
 the JAX package's layout dispatch: "fused" runs kernel B (ops.fused420);
-"plain" runs the pixel ops of ops.pixel around kernel A (ops.lut3d); and
+"plain" runs the pixel ops of ops.pixel around kernel A (ops.lut3d), on a
+CUDA device as two kernels (ops/pixel.render_plain); and
 "rowphase", which exists in the JAX package only to dodge XLA/Mosaic
 layout costs and is bit-identical to plain by contract, is an alias of
 plain. "auto" takes fused where it applies.
@@ -39,7 +40,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .fused420 import bayer_tensor, fused420_applicable, render_fused420
 from .lut3d import apply_lut_planes
-from .pixel import render_planes
+from .pixel import render_plain
 from .prepare import COARSE2_TIERS, Coarse2Table, LutTable, has_coarse2
 from .resample import bands_on, resample_plane
 
@@ -129,7 +130,7 @@ def render_yuv_frame(y, u, v, lut: Optional[Table], cfg: RenderConfig,
 
         def resize_fn(r, g, b):
             return tuple(resample_plane(p, wv, wh) for p in (r, g, b))
-    return render_planes(y, u, v, cfg, lut_fn, resize_fn)
+    return render_plain(y, u, v, cfg, lut_fn, resize_fn, bayer)
 
 
 def lut_operands_for(lut, cfg: RenderConfig,
