@@ -16,7 +16,11 @@ Protocol: JSON lines (one request object per line, one response per line).
   {"op": "status"}                     -> {"ok": true, "tasks": [...],
                                            "queue_progress": N,
                                            "lut_cache": {"hits", "misses",
-                                           "evictions", "entries"}}
+                                           "evictions", "entries"},
+                                           "launches_by_interp": {interp:
+                                           N} (kernel B on the card since
+                                           the process started; only once
+                                           it has launched)}
   {"op": "status", "task_id": "..."}   -> single-task view incl. "logs":
                                           the runtime log tail (policy
                                           decision notes, stage progress,
@@ -44,6 +48,7 @@ from pathlib import Path
 from typing import Optional
 
 from ..models import ProcessingParams
+from ..ops import fused420
 from ..tasks import TaskManager
 from ..tasks.runner import lut_cache_stats
 from .defaults import mode_template
@@ -278,8 +283,13 @@ class QueueServer:
         views = [_task_view(t) for t in tasks.values()]
         agg = (sum(t.progress for t in tasks.values()) // len(tasks)
                if tasks else 0)
-        return {"ok": True, "tasks": views, "queue_progress": agg,
-                "lut_cache": lut_cache_stats()}
+        out = {"ok": True, "tasks": views, "queue_progress": agg,
+               "lut_cache": lut_cache_stats()}
+        kernel_b = {k: n for k, n in fused420.launches_by_interp.items()
+                    if n}
+        if kernel_b:
+            out["launches_by_interp"] = kernel_b
+        return out
 
     # -- socket plumbing -------------------------------------------------------
     def start(self) -> None:

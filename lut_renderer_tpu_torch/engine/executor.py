@@ -40,8 +40,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import (Callable, Iterable, Iterator, List, NamedTuple, Optional,
-                    Tuple)
+from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -52,6 +52,7 @@ from ..models import VideoInfo
 from ..plan.policy import RenderSpec
 
 from ..device import DeviceLike, resolve_device
+from ..ops import fused420
 from ..ops.render import lut_tier, make_render_fn
 from ..parallel import SplitStats, default_mesh, make_sharded_render_fn
 from ..spans import begin as begin_spans
@@ -82,7 +83,10 @@ class StageStats:
     CUDA; the CPU's out and wait do nothing). `staged_ready` counts the
     batches already staged when the loop asked for them. `split` is the
     split render function's counters where the stage splits its batch over
-    several devices."""
+    several devices. `launches_by_interp` is kernel B's launches by
+    interpolation while the stage's device loop ran
+    (``ops.fused420.launches_by_interp``, a process-wide counter: a stage
+    that runs beside another counts the other's launches too)."""
 
     frames_in: int = 0
     frames_out: int = 0
@@ -97,6 +101,7 @@ class StageStats:
     batches: int = 0
     staged_ready: int = 0
     split: Optional[SplitStats] = None
+    launches_by_interp: Dict[str, int] = field(default_factory=dict)
 
     def summary(self) -> str:
         def rate(n, t):
@@ -108,6 +113,10 @@ class StageStats:
             for k in ("take", "stage", "render", "out", "wait")
         ) if self.batches else "n/a"
         split = f"; {self.split.summary()}" if self.split else ""
+        kernel_b = ", ".join(f"{k} {n}" for k, n in
+                             sorted(self.launches_by_interp.items()) if n)
+        if kernel_b:
+            split += f"; kernel B launches by interp: {kernel_b}"
         return (
             f"{self.frames_out} frames in {self.wall_s:.2f}s "
             f"({rate(self.frames_out, self.wall_s)} overall; "
@@ -316,9 +325,12 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
     after its start), and per batch (attribute ``batch``), on the loop's
     thread, ``executor.stage`` (the next staged batch taken and its copy
     in waited for on the device; attribute ``ready``: it was already
-    staged), ``executor.render``, ``executor.out`` and ``executor.wait``,
-    and on the staging thread ``executor.take`` and ``executor.pin`` (the
-    pageable -> pinned copy and the copy in enqueued on CUDA)."""
+    staged), ``executor.render`` (attributes ``layout`` and ``interp``
+    where `render_fn` names them, as ``make_render_fn``'s and
+    ``make_sharded_render_fn``'s do after each call), ``executor.out`` and
+    ``executor.wait``, and on the staging thread ``executor.take`` and
+    ``executor.pin`` (the pageable -> pinned copy and the copy in enqueued
+    on CUDA)."""
     stats = stats if stats is not None else StageStats()
     source = iter(batches)
     with span("executor.run") as run:
@@ -359,6 +371,11 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
                 with span("executor.render", run, batch=i) as sp:
                     outs = render_fn(*planes)
                     rendered = copies.rendered()
+                    # the render function's own account of this call
+                    layout = getattr(render_fn, "layout", None)
+                    if sp.recording and layout is not None:
+                        sp.attrs.update(layout=layout,
+                                        interp=render_fn.interp)
                 stats.render_s += sp.seconds
                 with span("executor.out", run, batch=i) as sp:
                     host, done = copies.copy_out(outs, rendered)
@@ -615,6 +632,7 @@ def run_stage(
                     return
                 yield a, b, c, count
 
+        by_interp0 = dict(fused420.launches_by_interp)
         try:
             for out in render_batches(host_batches(), render_fn, dev, stats):
                 if cancel.is_set():
@@ -626,6 +644,10 @@ def run_stage(
         except Exception as exc:
             error = f"render failed: {exc}"
         finally:
+            stats.launches_by_interp = {
+                k: n - by_interp0.get(k, 0)
+                for k, n in fused420.launches_by_interp.items()
+                if n > by_interp0.get(k, 0)}
             cancel_set = cancel.is_set()
             if cancel_set or error:
                 cancel.set()

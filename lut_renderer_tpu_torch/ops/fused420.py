@@ -42,9 +42,12 @@ from .pixel import render_planes
 from .prepare import Coarse2Table, LutTable
 
 # kernel launches by render_fused420 on CUDA tensors, of the exact and the
-# coarse2 instantiation (reset by callers that check which path ran)
+# coarse2 instantiation (reset by callers that check which path ran), and
+# the exact instantiation's launches by interpolation ({name: count}, its
+# counts add up to `launches`)
 launches = 0
 coarse2_launches = 0
+launches_by_interp: dict = {}
 
 # luma columns of a kernel B work unit (csrc/fused420.cuh): on the vector
 # path, and on the scalar path
@@ -261,6 +264,8 @@ def _fused420_cuda(y, u, v, lut: Union[LutTable, Coarse2Table], cfg, bayer):
         coarse2_launches += 1
     else:
         launches += 1
+        interp = canonical_interp(cfg.interp)
+        launches_by_interp[interp] = launches_by_interp.get(interp, 0) + 1
     return out
 
 

@@ -39,7 +39,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .fused420 import bayer_tensor, fused420_applicable, render_fused420
-from .lut3d import apply_lut_planes
+from .lut3d import apply_lut_planes, canonical_interp
 from .pixel import render_plain
 from .prepare import COARSE2_TIERS, Coarse2Table, LutTable, has_coarse2
 from .resample import bands_on, resample_plane
@@ -118,7 +118,15 @@ def render_yuv_frame(y, u, v, lut: Optional[Table], cfg: RenderConfig,
     resize_weights: the (vertical, horizontal) Band pair of cfg.resize for
     this input size on that device (make_render_fn caches it); None builds
     it here."""
-    if _use_fused(y, u, cfg, lut):
+    return _render(y, u, v, lut, cfg, _use_fused(y, u, cfg, lut), bayer,
+                   resize_weights)
+
+
+def _render(y, u, v, lut: Optional[Table], cfg: RenderConfig, fused: bool,
+            bayer, resize_weights):
+    """render_yuv_frame in the layout already chosen: kernel B where
+    `fused`, else the plain layout."""
+    if fused:
         return render_fused420(y, u, v, lut, cfg, bayer=bayer)
     lut_fn = resize_fn = None
     if cfg.apply_lut and lut is not None:
@@ -186,11 +194,34 @@ class _Renderer:
             return pair
 
     def __call__(self, y, u, v, lut):
+        """(outputs, the layout: "fused" or "plain")."""
         rsw = None
         if self.cfg.resize is not None:
             rsw = self.resize_weights((int(y.shape[-2]), int(y.shape[-1])))
-        return render_yuv_frame(y, u, v, lut, self.cfg, bayer=self.bayer,
-                                resize_weights=rsw)
+        fused = _use_fused(y, u, self.cfg, lut)
+        return (_render(y, u, v, lut, self.cfg, fused, self.bayer, rsw),
+                "fused" if fused else "plain")
+
+
+class RenderFn:
+    """The render function ``fn(y, u, v) -> (yq, uq, vq)`` of
+    ``make_render_fn``. After each call ``layout`` ("fused" or "plain", as
+    ``_use_fused`` chose for that batch) and ``interp`` (the interpolation
+    that ran, None where no LUT applies) say what it ran; the executor's
+    ``executor.render`` span records them. One per job: the attributes
+    are its last call's."""
+
+    __slots__ = ("_renderer", "_table", "layout", "interp")
+
+    def __init__(self, renderer: _Renderer, table: Optional[Table]):
+        self._renderer, self._table = renderer, table
+        self.layout: Optional[str] = None
+        self.interp = (None if table is None
+                       else canonical_interp(renderer.cfg.interp))
+
+    def __call__(self, y, u, v):
+        out, self.layout = self._renderer(y, u, v, self._table)
+        return out
 
 
 _RENDER_FN_CACHE: dict = {}
@@ -199,9 +230,11 @@ _RENDER_FN_CACHE_MAX = 32
 _RENDER_FN_CACHE_LOCK = threading.Lock()
 
 
-def make_render_fn(lut, cfg: RenderConfig, device: DeviceLike = "cuda"):
+def make_render_fn(lut, cfg: RenderConfig,
+                   device: DeviceLike = "cuda") -> RenderFn:
     """A render function ``fn(y, u, v) -> (yq, uq, vq)`` for tensors on
-    `device`. Batched (B, H, W) inputs take the same path as single frames."""
+    `device` (a ``RenderFn``). Batched (B, H, W) inputs take the same path
+    as single frames."""
     dev = resolve_device(device)
     table = lut_operands_for(lut, cfg, dev)
     key = (cfg, None if table is None else table.static_key, dev)
@@ -212,4 +245,4 @@ def make_render_fn(lut, cfg: RenderConfig, device: DeviceLike = "cuda"):
             while len(_RENDER_FN_CACHE) >= _RENDER_FN_CACHE_MAX:
                 _RENDER_FN_CACHE.pop(next(iter(_RENDER_FN_CACHE)))
             _RENDER_FN_CACHE[key] = renderer
-    return lambda y, u, v: renderer(y, u, v, table)
+    return RenderFn(renderer, table)

@@ -117,7 +117,10 @@ def make_sharded_render_fn(lut, cfg: RenderConfig,
                            devices: Sequence[DeviceLike]):
     """A render function ``fn(y, u, v) -> (yq, uq, vq)`` that splits the
     batch axis over `devices`: inputs anywhere (the host or a device),
-    outputs on ``devices[0]``, in frame order."""
+    outputs on ``devices[0]``, in frame order. Its ``stats`` count the
+    calls; after each call its ``layout`` and ``interp`` are those of the
+    first chunk's render function (every chunk has the same planes' shape,
+    so the same layout)."""
     devs = [resolve_device(d) for d in devices]
     if not devs:
         raise ValueError("no devices to split the batch over")
@@ -182,7 +185,10 @@ def make_sharded_render_fn(lut, cfg: RenderConfig,
         stats.peer_bytes += peer
         for i, _, _, _, planes in parts:
             stats.frames[i] += int(planes[0].shape[0])
+        if parts:
+            call.layout = parts[0][1].layout
         return res
 
     call.stats = stats
+    call.layout, call.interp = None, fns[0].interp
     return call

@@ -137,6 +137,11 @@ class span:
         return False
 
     @property
+    def recording(self) -> bool:
+        """The span is being kept: a profiler recorded as it opened."""
+        return self.id is not None
+
+    @property
     def seconds(self) -> float:
         return (self.end - self.start) * 1e-9
 
