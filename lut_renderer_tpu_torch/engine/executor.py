@@ -9,7 +9,8 @@ planes in, quantised host planes out. ``run_stage`` wraps it with the
 hostio decoder and encoder. A staging thread takes the host batches and
 copies each in, one batch ahead of the loop; the loop keeps one batch in
 flight: batch N+1 is rendered before the host waits for batch N's copy
-out. On a CUDA device the copy in goes pageable -> pinned, then
+out. On a CUDA device the copy in goes pageable -> pinned into a slot of
+the device's pinned ring (``PinnedRing``, kept across calls), then
 non-blocking on a copy stream, and the copy out runs on its own stream
 after an event that marks the end of the render; on the CPU, where the
 tests run it, the same loop hands the host arrays over as they are.
@@ -33,6 +34,7 @@ runs: exact, or the requested coarse2 tier).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import queue
@@ -53,6 +55,7 @@ from ..plan.policy import RenderSpec
 
 from ..device import DeviceLike, resolve_device
 from ..ops import fused420
+from ..ops._build import load_library
 from ..ops.render import lut_tier, make_render_fn
 from ..parallel import SplitStats, default_mesh, make_sharded_render_fn
 from ..spans import begin as begin_spans
@@ -81,7 +84,11 @@ class StageStats:
     on CUDA), render (the render call), out (the pinned outputs and the
     copy out on CUDA) and wait (for the previous batch's copy out on
     CUDA; the CPU's out and wait do nothing). `staged_ready` counts the
-    batches already staged when the loop asked for them. `split` is the
+    batches already staged when the loop asked for them. `ring_staged`
+    counts the batches staged through a slot of the pinned ring (CUDA),
+    `ring_allocs` the slots the stage allocated (none where it found the
+    device's ring warm) and `ring_waits` the times the staging thread
+    waited for a slot's last copy in. `split` is the
     split render function's counters where the stage splits its batch over
     several devices. `launches_by_interp` is kernel B's launches by
     interpolation while the stage's device loop ran
@@ -100,6 +107,9 @@ class StageStats:
     encode_s: float = 0.0
     batches: int = 0
     staged_ready: int = 0
+    ring_staged: int = 0
+    ring_allocs: int = 0
+    ring_waits: int = 0
     split: Optional[SplitStats] = None
     launches_by_interp: Dict[str, int] = field(default_factory=dict)
 
@@ -117,6 +127,10 @@ class StageStats:
                              sorted(self.launches_by_interp.items()) if n)
         if kernel_b:
             split += f"; kernel B launches by interp: {kernel_b}"
+        if self.ring_staged or self.ring_allocs:
+            split += (f"; pinned ring: {self.ring_staged} staged, "
+                      f"{self.ring_allocs} slots allocated, "
+                      f"{self.ring_waits} waits")
         return (
             f"{self.frames_out} frames in {self.wall_s:.2f}s "
             f"({rate(self.frames_out, self.wall_s)} overall; "
@@ -176,10 +190,12 @@ def _put(handoff: "queue.Queue", item, stop: threading.Event) -> bool:
 
 
 def _stage_loop(source: Iterator, stage, run, stats: StageStats,
-                handoff: "queue.Queue", stop: threading.Event) -> None:
+                handoff: "queue.Queue", stop: threading.Event,
+                close: Optional[Callable[[], None]]) -> None:
     """The staging thread: take each item of `source` (``executor.take``),
     stage it (``executor.pin``) and hand it over, until the source ends or
-    fails or `stop` is set. It keeps nothing it handed over."""
+    fails or `stop` is set; then `close`. It keeps nothing it handed
+    over."""
     try:
         for i in itertools.count():
             with span("executor.take", run, batch=i) as sp:
@@ -188,7 +204,7 @@ def _stage_loop(source: Iterator, stage, run, stats: StageStats,
             if item is _END or stop.is_set():
                 break
             with span("executor.pin", run, batch=i) as sp:
-                staged = stage(item)
+                staged = stage(item, sp)
             stats.stage_s += sp.seconds
             del item
             if not _put(handoff, staged, stop):
@@ -197,27 +213,33 @@ def _stage_loop(source: Iterator, stage, run, stats: StageStats,
     except BaseException as exc:  # raised on the loop's thread, in order
         _put(handoff, _Failed(exc), stop)
         return
+    finally:
+        if close is not None:
+            close()
     _put(handoff, _END, stop)
 
 
 def stage_ahead(source: Iterable, stage, run=None,
-                stats: Optional[StageStats] = None
+                stats: Optional[StageStats] = None,
+                close: Optional[Callable[[], None]] = None
                 ) -> Iterator[Tuple[object, bool]]:
-    """``(stage(item), ready)`` for each item of `source`, in order:
+    """``(stage(item, sp), ready)`` for each item of `source`, in order:
     `stage` runs on a thread of its own, one item ahead of the caller (at
-    most one staged item waits while the next is staged); `ready` is true
-    when the staged item was already waiting as the caller asked for it.
-    An exception of `source` or `stage` is raised here, after the items
+    most one staged item waits while the next is staged), and may set
+    attributes of its ``executor.pin`` span `sp`; `ready` is true when the
+    staged item was already waiting as the caller asked for it. An
+    exception of `source` or `stage` is raised here, after the items
     before it. Closing the generator stops the thread at its next hand-off
-    or the source's next return, and does not wait for either. The
-    thread's spans (``executor.take``, ``executor.pin``, attribute
-    ``batch``) take `run` as their parent and add up in `stats`' take_s
-    and stage_s."""
+    or the source's next return, and does not wait for either. The thread
+    calls `close` as it ends, after its last `stage`. The thread's spans
+    (``executor.take``, ``executor.pin``, attribute ``batch``) take `run`
+    as their parent and add up in `stats`' take_s and stage_s."""
     stats = stats if stats is not None else StageStats()
     handoff: "queue.Queue" = queue.Queue(maxsize=1)
     stop = threading.Event()
     threading.Thread(target=_stage_loop, name="executor.stage_ahead",
-                     args=(iter(source), stage, run, stats, handoff, stop),
+                     args=(iter(source), stage, run, stats, handoff, stop,
+                           close),
                      daemon=True).start()
     try:
         while True:
@@ -239,13 +261,149 @@ def stage_ahead(source: Iterable, stage, run=None,
             pass
 
 
+# slots of a pinned ring: one being filled, one waiting in the hand-off
+# (``stage_ahead``'s queue of one) and one whose copy in may still run
+RING_DEPTH = 3
+# bytes each plane's offset in a slot is a multiple of, so a plane's
+# device view is as aligned as a buffer of its own for the kernels'
+# vector loads
+RING_ALIGN = 256
+
+
+# planes a host copy takes at most: HOST_COPY_MAX_PLANES of hostcopy.cu
+_HOST_COPY_MAX_PLANES = 4
+
+
+class _HostCopyParams(ctypes.Structure):
+    """``HostCopyParams`` of csrc/hostcopy.cu."""
+    _fields_ = [("src", ctypes.c_void_p * _HOST_COPY_MAX_PLANES),
+                ("dst", ctypes.c_void_p * _HOST_COPY_MAX_PLANES),
+                ("bytes", ctypes.c_int64 * _HOST_COPY_MAX_PLANES),
+                ("planes", ctypes.c_int32),
+                ("threads", ctypes.c_int32)]
+
+
+class PinnedRing:
+    """Pinned host slots for batches of one shape: each slot holds a
+    batch's planes back to back in one block, allocated once. A slot is
+    filled again only after the copy in from it, marked by the event set
+    with ``done``, has finished: ``take`` waits for it otherwise.
+
+    `key` is the planes' ``(shape, dtype)`` pairs (``ring_key``). `pin`
+    False gives unpinned blocks, filled by ``Tensor.copy_``, for tests
+    without a card. One thread uses a ring at a time (``lease_ring``)."""
+
+    def __init__(self, key, pin: bool = True):
+        self.key = key
+        self.pinned = pin
+        self.layout = []  # (offset, nbytes, torch dtype, shape) a plane
+        off = 0
+        for shape, dtype in key:
+            nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+            torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+            self.layout.append((off, nbytes, torch_dtype, shape))
+            off += -(-nbytes // RING_ALIGN) * RING_ALIGN
+        self.nbytes = off
+        self.blocks = [torch.empty(off, dtype=torch.uint8, pin_memory=pin)
+                       for _ in range(RING_DEPTH)]
+        self.events = [None] * RING_DEPTH
+        self.next = 0
+
+    def views(self, block: torch.Tensor) -> List[torch.Tensor]:
+        """The planes of a slot's `block`, or of a copy of it, as views."""
+        return [block[off:off + n].view(dt).view(shape)
+                for off, n, dt, shape in self.layout]
+
+    def take(self) -> Tuple[int, bool]:
+        """The next slot, in turn, and whether it had to wait for the
+        slot's last copy in."""
+        slot = self.next
+        self.next = (slot + 1) % len(self.blocks)
+        event, self.events[slot] = self.events[slot], None
+        waited = event is not None and not event.query()
+        if waited:
+            event.synchronize()
+        return slot, waited
+
+    def fill(self, slot: int, planes) -> torch.Tensor:
+        """Copy the host `planes` into `slot`; its block. A pinned block is
+        filled by the render library's streaming copy (csrc/hostcopy.cu)
+        on ``torch.get_num_threads()`` threads with the GIL released, an
+        unpinned one by ``Tensor.copy_``."""
+        if ring_key(planes) != self.key:
+            raise ValueError(f"planes {ring_key(planes)} do not fit a ring "
+                             f"of {self.key}")
+        block = self.blocks[slot]
+        if not self.pinned:
+            for a, view in zip(planes, self.views(block)):
+                view.copy_(torch.from_numpy(a))
+            return block
+        # kept referenced until the copy returns
+        planes = [np.ascontiguousarray(a) for a in planes]
+        params = _HostCopyParams(planes=len(planes),
+                                 threads=torch.get_num_threads())
+        base = block.data_ptr()
+        for i, (a, (off, nbytes, _, _)) in enumerate(zip(planes,
+                                                          self.layout)):
+            params.src[i] = a.ctypes.data
+            params.dst[i] = base + off
+            params.bytes[i] = nbytes
+        err = load_library().host_copy(ctypes.byref(params), None)
+        if err != 0:
+            raise RuntimeError(f"host_copy: error {err}")
+        return block
+
+    def done(self, slot: int, event) -> None:
+        """`event` marks the end of the copy in from `slot`."""
+        self.events[slot] = event
+
+
+def ring_key(planes) -> tuple:
+    """A ring's key for host `planes`: their shapes and dtypes."""
+    return tuple((tuple(a.shape), np.dtype(a.dtype).str) for a in planes)
+
+
+# each device's ring, kept between calls; a stage takes it for its
+# staging thread's life and gives it back
+_RINGS: Dict[torch.device, PinnedRing] = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def lease_ring(device: torch.device, key,
+               stats: Optional[StageStats] = None, pin: bool = True
+               ) -> PinnedRing:
+    """The device's ring for `key`, taken from the process's rings until
+    ``return_ring``: the one kept if its key matches, else a new one (the
+    kept one of another key is dropped). A second stage on the device
+    while the first holds its ring gets a ring of its own. New slots count
+    in `stats`' ring_allocs."""
+    with _RINGS_LOCK:
+        kept = _RINGS.pop(device, None)
+    if kept is not None and kept.key == key:
+        return kept
+    del kept  # freed before the new ring is made
+    ring = PinnedRing(key, pin=pin)
+    if stats is not None:
+        stats.ring_allocs += len(ring.blocks)
+    return ring
+
+
+def return_ring(device: torch.device, ring: PinnedRing) -> None:
+    """Keep `ring` as the device's, for the next stage."""
+    with _RINGS_LOCK:
+        _RINGS[device] = ring
+
+
 class _HostCopies:
     """The device loop's copies on the CPU, where the render function takes
     and gives host tensors: the arrays go in and come out as they are, and
     there is no event to wait for."""
 
-    def copy_in(self, planes):
+    def copy_in(self, planes, sp):
         return [torch.from_numpy(a) for a in planes], None
+
+    def close(self) -> None:
+        pass
 
     def wait_in(self, planes, copied) -> None:
         pass
@@ -261,25 +419,50 @@ class _HostCopies:
 
 
 class _CudaCopies:
-    """The device loop's copies on a CUDA device: in through pinned memory
-    on the `h2d` stream, which the render (on the current stream) waits
-    for; out into pinned memory on the `d2h` stream once the render is
-    done; each copy marked by an event."""
+    """The device loop's copies on a CUDA device: in through a slot of the
+    device's pinned ring on the `h2d` stream, which the render (on the
+    current stream) waits for; out into pinned memory on the `d2h` stream
+    once the render is done; each copy marked by an event."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stats: StageStats):
         self.device = device
+        self.stats = stats
+        self.ring: Optional[PinnedRing] = None
         self.compute = torch.cuda.current_stream(device)
         self.h2d = torch.cuda.Stream(device)
         self.d2h = torch.cuda.Stream(device)
 
-    def copy_in(self, planes):
-        """On the staging thread: (device planes, their copy's event)."""
-        pinned = [torch.from_numpy(a).pin_memory() for a in planes]
+    def copy_in(self, planes, sp):
+        """On the staging thread: (device planes, their copy's event). The
+        planes go into the ring's next slot, then to the device in one
+        copy; `sp` (``executor.pin``) gets the slot and whether it
+        waited."""
+        key = ring_key(planes)
+        if self.ring is None or self.ring.key != key:
+            self.ring = None  # one of other shapes is dropped, not kept
+            self.ring = lease_ring(self.device, key, self.stats)
+        ring = self.ring
+        slot, waited = ring.take()
+        block = ring.fill(slot, planes)
         with torch.cuda.stream(self.h2d):
-            planes = [p.to(self.device, non_blocking=True) for p in pinned]
+            dev = torch.empty(ring.nbytes, dtype=torch.uint8,
+                              device=self.device)
+            dev.copy_(block, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record(self.h2d)
-        return planes, copied
+        ring.done(slot, copied)
+        self.stats.ring_staged += 1
+        self.stats.ring_waits += waited
+        if sp.recording:
+            sp.attrs.update(slot=slot, waited=waited)
+        return ring.views(dev), copied
+
+    def close(self) -> None:
+        """On the staging thread, as it ends: the ring goes back to the
+        device's keeping."""
+        if self.ring is not None:
+            return_ring(self.device, self.ring)
+            self.ring = None
 
     def wait_in(self, planes, copied) -> None:
         self.compute.wait_event(copied)
@@ -330,16 +513,17 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
     ``make_sharded_render_fn``'s do after each call), ``executor.out`` and
     ``executor.wait``, and on the staging thread ``executor.take`` and
     ``executor.pin`` (the pageable -> pinned copy and the copy in enqueued
-    on CUDA)."""
+    on CUDA; attributes ``slot`` and ``waited``: the pinned ring's slot,
+    and whether it waited for the slot's last copy in)."""
     stats = stats if stats is not None else StageStats()
     source = iter(batches)
     with span("executor.run") as run:
-        copies = (_CudaCopies(device) if device.type == "cuda"
+        copies = (_CudaCopies(device, stats) if device.type == "cuda"
                   else _HostCopies())
 
-        def stage(item):
+        def stage(item, sp):
             y, u, v, count = item
-            planes, copied = copies.copy_in((y, u, v))
+            planes, copied = copies.copy_in((y, u, v), sp)
             return planes, copied, count
 
         def finish(batch) -> HostBatch:
@@ -351,7 +535,7 @@ def render_batches(batches: Iterable[HostBatch], render_fn,
             run.mark("first_yield_ns")
             return (*(h.numpy() for h in host), count)
 
-        staged = stage_ahead(source, stage, run, stats)
+        staged = stage_ahead(source, stage, run, stats, copies.close)
         in_flight = None  # (host outputs, done event, count, batch index)
         failed = None
         try:

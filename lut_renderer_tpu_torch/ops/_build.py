@@ -31,14 +31,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-# the render library: the kernels a render path launches, and nothing else
-# (the stage probes build their own, probes/harness.probe_library)
+# the render library: the kernels a render path launches and the device
+# loop's host copy into its pinned ring, and nothing else (the stage probes
+# build their own, probes/harness.probe_library)
 SOURCES = ("lut3d.cu", "coarse2.cu", "fused420.cu", "fused420_coarse2.cu",
-           "resample.cu", "pixel.cu")
+           "resample.cu", "pixel.cu", "hostcopy.cu")
 HEADERS = ("lut_interp.cuh", "planar_lut.cuh", "fused420.cuh")
 ENTRY_POINTS = ("lut3d_launch", "coarse2_launch", "fused420_launch",
                 "fused420_coarse2_launch", "resample_launch",
-                "pixel_unpack_launch", "pixel_pack_launch")
+                "pixel_unpack_launch", "pixel_pack_launch", "host_copy")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",

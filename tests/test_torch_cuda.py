@@ -11,6 +11,7 @@ Tolerances: 1e-5 absolute on LUT output; the integer contract (max |d| <=
 versions run PyTorch's CUDA ops, which divide by a scalar through its
 reciprocal where the kernels divide exactly."""
 
+import time
 from dataclasses import replace
 
 import numpy as np
@@ -196,6 +197,106 @@ def test_render_batches_staged_ahead_keeps_every_output(cuda_device, layout,
         for a, e in zip(g[:3], alone):
             assert np.array_equal(a, e.cpu().numpy())
         assert_integer_contract(g[:3], w[:3], layout)
+
+
+def _fresh_pinned_copy_in(self, planes, sp):
+    """The copy in before the pinned ring: a fresh pinned block a plane,
+    each copied to the card on its own."""
+    pinned = [torch.from_numpy(a).pin_memory() for a in planes]
+    with torch.cuda.stream(self.h2d):
+        planes = [p.to(self.device, non_blocking=True) for p in pinned]
+        copied = torch.cuda.Event()
+        copied.record(self.h2d)
+    return planes, copied
+
+
+def _slower_than_the_copy(fn):
+    """`fn` behind a host sleep and a device spin on its stream, each far
+    longer than a small batch's copy in."""
+    def render(*planes):
+        time.sleep(0.005)
+        torch.cuda._sleep(2_000_000)
+        return fn(*planes)
+    return render
+
+
+@pytest.mark.parametrize("slow", [False, True], ids=["fast", "slow_render"])
+def test_render_batches_through_the_pinned_ring(cuda_device, monkeypatch,
+                                                slow):
+    """Jobs through the device's pinned ring, which outlives each call: 3x
+    the ring's depth and one more batch with a padded last batch, a job of
+    another shape (the ring is replaced), the first shape again (replaced
+    again) and once more (kept). Every output is bit-equal to the copy in
+    through fresh pinned blocks, also with a render slower than the copy;
+    every batch goes through a slot, and slots are allocated only where
+    the shape changed."""
+    from lut_renderer_tpu_torch.engine import executor
+
+    monkeypatch.setattr(executor, "_RINGS", {})
+    fn = make_render_fn(random_lut(17, seed=7), RenderConfig(dither="ordered"),
+                        cuda_device)
+    render = _slower_than_the_copy(fn) if slow else fn
+    n = 3 * executor.RING_DEPTH + 1
+    jobs = [[(*planes(60 + s, 2, 32, 96, 8), 2 if s < n - 1 else 1)
+             for s in range(n)],
+            [(*planes(80 + s, 2, 48, 128, 8), 2) for s in range(4)],
+            [(*planes(90 + s, 2, 32, 96, 8), 2) for s in range(5)],
+            [(*planes(95 + s, 2, 32, 96, 8), 1) for s in range(3)]]
+    got, allocs = [], []
+    for batches in jobs:
+        stats = executor.StageStats()
+        got.append(list(render_batches(iter(batches), render, cuda_device,
+                                       stats)))
+        assert stats.ring_staged == stats.batches == len(batches)
+        allocs.append(stats.ring_allocs)
+    assert allocs == [executor.RING_DEPTH] * 3 + [0]
+    monkeypatch.setattr(executor._CudaCopies, "copy_in",
+                        _fresh_pinned_copy_in)
+    for batches, outs in zip(jobs, got):
+        want = list(render_batches(iter(batches), render, cuda_device))
+        assert [o[3] for o in outs] == [b[3] for b in batches]
+        for o, w in zip(outs, want):
+            for a, e in zip(o[:3], w[:3]):
+                assert np.array_equal(a, e)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3])
+@pytest.mark.parametrize("dtype,shapes,strided", [
+    (np.uint8, [(1,), (17,), (3,)], False),
+    (np.uint8, [(2, 1081, 1923), (2, 541, 961), (2, 541, 961)], False),
+    (np.uint16, [(1, 7, 4099), (3, 5), (1,)], False),
+    (np.uint16, [(3, 33, 258), (3, 17, 65), (3, 17, 65)], True),
+], ids=["tiny", "odd_8bit", "odd_16bit", "strided"])
+def test_pinned_ring_streaming_copy_is_byte_equal(cuda_device, threads,
+                                                  dtype, shapes, strided):
+    """A pinned slot filled by the streaming copy (csrc/hostcopy.cu) over 1
+    to 3 threads holds the source's bytes on odd sizes, and leaves every
+    byte around its planes as it was."""
+    from lut_renderer_tpu_torch.engine.executor import PinnedRing, ring_key
+
+    rng = np.random.default_rng(threads)
+    hi = np.iinfo(dtype).max
+    src = [rng.integers(0, hi, (s[0], s[1], 2 * s[2]) if strided else s,
+                        endpoint=True, dtype=dtype) for s in shapes]
+    if strided:
+        src = [a[..., ::2] for a in src]
+    ring = PinnedRing(ring_key(src))
+    assert all(b.is_pinned() for b in ring.blocks)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for _ in range(len(ring.blocks) + 1):
+            slot, _ = ring.take()
+            ring.blocks[slot].fill_(0xAB)
+            block = ring.fill(slot, src)
+            around = torch.ones(ring.nbytes, dtype=torch.bool)
+            for got, want, (off, n, _, _) in zip(ring.views(block), src,
+                                                 ring.layout):
+                assert np.array_equal(got.numpy(), want)
+                around[off:off + n] = False
+            assert bool((block[around] == 0xAB).all())
+    finally:
+        torch.set_num_threads(before)
 
 
 _GEOMETRIES = {"420": dict(), "422": dict(out_subsampling="422"),

@@ -32,7 +32,7 @@ def _items(n):
     return [(i, 2 if i < n - 1 else 1) for i in range(n)]
 
 
-def _stage(item):
+def _stage(item, sp=None):
     i, count = item
     return ("staged", i), count
 
@@ -76,7 +76,7 @@ def test_runs_at_most_one_item_ahead():
             yield item
         asked.append(n)   # the end
 
-    def stage(item):
+    def stage(item, sp=None):
         # items the caller has not taken yet, besides this one
         ahead.append(item[0] - taken[0])
         return _stage(item)
@@ -99,7 +99,7 @@ def test_a_slow_stage_is_not_ready():
     n = 4
     asking = [threading.Event() for _ in range(n)]
 
-    def stage(item):
+    def stage(item, sp=None):
         # staged only after the loop has asked for it
         assert asking[item[0]].wait(JOIN_S)
         time.sleep(0.1)
@@ -127,7 +127,7 @@ def test_an_error_is_raised_after_the_items_before_it(where):
                 raise Broken(item[0])
             yield item
 
-    def stage(item):
+    def stage(item, sp=None):
         if where == "stage" and item[0] == k:
             raise Broken(item[0])
         return _stage(item)
@@ -168,7 +168,7 @@ def test_close_does_not_wait_on_a_blocked_source():
 def test_close_stops_a_thread_waiting_on_the_hand_off():
     staged = []
 
-    def stage(item):
+    def stage(item, sp=None):
         staged.append(item[0])
         return _stage(item)
 
@@ -181,6 +181,42 @@ def test_close_stops_a_thread_waiting_on_the_hand_off():
     assert not thread.is_alive()
     # the taken item, one waiting and one being staged at most
     assert len(staged) <= 3
+
+
+@pytest.mark.parametrize("how", ["end", "error", "closed"])
+def test_close_runs_on_the_staging_thread_after_its_last_stage(how):
+    """`close` runs once, on the staging thread, after its last `stage`:
+    when the source ends, when a stage fails, and when the caller closes
+    the generator while the thread waits on the hand-off."""
+    events, threads = [], []
+
+    class Broken(Exception):
+        pass
+
+    def stage(item, sp=None):
+        events.append(("stage", item[0]))
+        if how == "error" and item[0] == 2:
+            raise Broken()
+        return _stage(item)
+
+    def close():
+        events.append(("close", None))
+        threads.append(threading.current_thread())
+
+    before = set(threading.enumerate())
+    gen = stage_ahead(iter(_items(5)), stage, close=close)
+    if how == "end":
+        assert len(list(gen)) == 5
+    elif how == "error":
+        with pytest.raises(Broken):
+            list(gen)
+    else:
+        next(gen)
+        gen.close()
+    assert _joined(_new_threads(before))
+    assert events[-1] == ("close", None)
+    assert events.count(("close", None)) == 1
+    assert [t.name for t in threads] == ["executor.stage_ahead"]
 
 
 def _profiled(fn):
